@@ -7,14 +7,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the hand-written CUDA kernels from hydrium_tpu_torch/csrc;
 3. each kernel against its plain torch twin on the card, at the shapes
-   one 2048x2048 LF group gives it: exact equality of every output,
-   median CUDA-event times of kernel and twin;
-4. the main path: hydrium_tpu_torch.encode_image on a 3840x2160 u8 image
-   (noise + sinusoid, from a seed), one frame of four LF groups.  Checks:
-   all four LF groups packed, no fallback, both kernels launched by the
-   encode, the JPEG XL signature, a byte-identical second encode, the
-   card's front integers against the port's CPU front on one 2048^2 LF
-   group (flip rate <= 1e-4), and, where libjxl loads, decode PSNR.
+   the encode paths give it: transport prep and chunk pack at one
+   2048x2048 LF group, one stacked tiled chunk and one edge tile,
+   exactly equal; the fused front at one LF group (G = 64), one stacked
+   tiled chunk (G = 16, u8 sRGB and f32 linear) and two edge tiles
+   (G = 1, true extent inside a smaller upload), within a flip bound.
+   Median CUDA-event times of kernel and twin;
+4. one-frame mode: hydrium_tpu_torch.encode_image on a 3840x2160 u8
+   image (noise + sinusoid, from a seed), one frame of four LF groups.
+   Checks: all four LF groups packed, no fallback, the transport and
+   pack kernels launched by the encode, the JPEG XL signature, a
+   byte-identical second encode, the card's front integers against the
+   port's CPU front on one 2048^2 LF group (flip rate <= 1e-4), and,
+   where libjxl loads, decode PSNR;
+5. tiled mode (this slice's path): the same image in 256^2 tiles, sent
+   one row at a time through Encoder.send_tile_batch with the fused
+   front.  Checks: every stacked chunk and edge tile packed, no
+   fallback, each kernel launched exactly as often as the dispatches
+   need, the
+   signature, a byte-identical second encode, decode PSNR where libjxl
+   loads; also the warm time with the unfused front.
 
 Prints one JSON line of kernel results, then as the last line
 {"ok": true, "device": {...}}.
@@ -30,9 +42,12 @@ import time
 
 import numpy as np
 
-# flip-rate bound of the card's front vs the CPU front (float32 sums in
-# another order and FMA contraction move a few truncations per million)
+# flip-rate bound of the card's front vs the CPU front, and of the
+# frontend kernel vs its plain twin on the card (float32 sums in another
+# order, FMA contraction and cbrtf against pow move a few truncations per
+# million); a flip moves q by at most 2 (across the dead zone), dc by 1
 FRONT_FLIP_TOL = 1e-4
+TILE = 256
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -86,8 +101,16 @@ def _pack_case(rng, dev, R: int, ch: int, cap: int, p: float,
             torch.as_tensor(widths.astype(np.int32), device=dev))
 
 
+# the shapes the encode paths give transport prep and chunk pack, in
+# groups of 3072 [64]-slot rows: one 2048^2 LF group (one-frame mode),
+# one stacked chunk of 16 tiles and one edge tile (tiled mode)
+KERNEL_SHAPES = {"lfg": 64, "chunk": 16, "edge": 1}
+
+
 def check_kernels(dev):
-    """Phase 3: each kernel vs its plain twin at main-path shapes."""
+    """Phase 3: transport prep and chunk pack vs their plain twins, exactly
+    equal, at every main-path shape.  The JSON times are the stacked
+    chunk's (the tiled path); by_case holds all of them."""
     import torch
 
     from hydrium_tpu_torch.ops import constants as C
@@ -96,70 +119,177 @@ def check_kernels(dev):
                                                  transport_prep_plain)
 
     rng = np.random.default_rng(2160)
-    N = 64 * 3072                    # one 2048^2 LF group: G=64 groups
-    results = []
-
-    args = _transport_case(rng, dev, N)
-    got = transport_prep(*args, tok_classes=9)
-    want = transport_prep_plain(*args, tok_classes=9)
-    torch.cuda.synchronize()
-    names = ("t_flat", "t_bits", "r_flat", "r_bits")
-    for g, w, n in zip(got, want, names):
-        if not torch.equal(g, w):
-            bad = int((g != w).sum().item())
-            raise AssertionError(f"transport_prep {n}: {bad} mismatches")
-    err = max(int((g.long() - w.long()).abs().max().item())
-              for g, w in zip(got, want))
-    ms = _time_ms(lambda: transport_prep(*args, tok_classes=9))
-    plain_ms = _time_ms(lambda: transport_prep_plain(*args, tok_classes=9))
-    print(f"transport_prep N={N}: equal, kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms", flush=True)
-    results.append({"name": "transport_prep", "route": "cuda",
-                    "source": "hydrium_tpu_torch/csrc/transport_prep.cu",
-                    "replaces": "hydrium_tpu/ops/pallas/prep.py:221",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "shape": f"N={N}"})
-
-    M = N * 64
-    cases = [
-        ("tokens", M // C.TOK_CHUNK, C.TOK_CHUNK, C.TOK_OW, C.TOK_MAX_LEN,
-         0.35, 0),
-        ("residues_fast", M // C.RES_CHUNK, C.RES_CHUNK, C.RES_OW_FAST,
-         C.RES_CAP_FAST, 0.4, 0),
-        ("residues_wide", M // C.RES_CHUNK, C.RES_CHUNK, C.RES_OW_WIDE,
-         C.RES_CAP_WIDE, 0.2, 2),
-    ]
-    pack_err, pack_ms, pack_plain_ms, shapes = 0, {}, {}, []
-    for name, R, ch, ow, cap, p, ovf in cases:
-        vals, widths = _pack_case(rng, dev, R, ch, cap, p, ovf)
-        got = pack_chunks(vals, widths, ch, ow)
-        want = pack_chunks_plain(vals, widths, ch, ow)
+    tp, tp_err = {}, 0
+    pk, pk_err = {}, 0
+    for shape, G in KERNEL_SHAPES.items():
+        N = G * 3072
+        args = _transport_case(rng, dev, N)
+        got = transport_prep(*args, tok_classes=9)
+        want = transport_prep_plain(*args, tok_classes=9)
         torch.cuda.synchronize()
-        for g, w, n in zip(got, want, ("chunks", "chunk_bits")):
+        names = ("t_flat", "t_bits", "r_flat", "r_bits")
+        for g, w, n in zip(got, want, names):
             if not torch.equal(g, w):
                 bad = int((g != w).sum().item())
-                raise AssertionError(f"pack_chunks {name} {n}: {bad} "
+                raise AssertionError(f"transport_prep {shape} {n}: {bad} "
                                      "mismatches")
-        pack_err = max(pack_err, max(
-            int((g.long() - w.long()).abs().max().item())
-            for g, w in zip(got, want)))
-        pack_ms[name] = _time_ms(lambda: pack_chunks(vals, widths, ch, ow))
-        pack_plain_ms[name] = _time_ms(
-            lambda: pack_chunks_plain(vals, widths, ch, ow))
-        shapes.append(f"{name}: R={R} ch={ch} ow={ow}")
-        print(f"pack_chunks {name} R={R} ch={ch} ow={ow} cap={cap}: equal, "
-              f"kernel {pack_ms[name]:.4f} ms, plain "
-              f"{pack_plain_ms[name]:.4f} ms", flush=True)
-    results.append({"name": "chunk_pack", "route": "cuda",
-                    "source": "hydrium_tpu_torch/csrc/chunk_pack.cu",
-                    "replaces": "hydrium_tpu/ops/pallas/bitpack.py:203",
-                    "max_abs_err": pack_err,
-                    "ms": pack_ms["tokens"] + pack_ms["residues_fast"],
-                    "plain_ms": (pack_plain_ms["tokens"]
-                                 + pack_plain_ms["residues_fast"]),
-                    "ms_by_case": pack_ms, "plain_ms_by_case": pack_plain_ms,
-                    "shape": "; ".join(shapes)})
-    return results
+        tp_err = max(tp_err, max(int((g.long() - w.long()).abs().max())
+                                 for g, w in zip(got, want)))
+        tp[shape] = {
+            "N": N, "ms": _time_ms(lambda: transport_prep(*args,
+                                                          tok_classes=9)),
+            "plain_ms": _time_ms(lambda: transport_prep_plain(
+                *args, tok_classes=9))}
+        print(f"transport_prep {shape} N={N}: equal, kernel "
+              f"{tp[shape]['ms']:.4f} ms, plain {tp[shape]['plain_ms']:.4f} "
+              "ms", flush=True)
+
+        M = N * 64
+        cases = [
+            ("tokens", M // C.TOK_CHUNK, C.TOK_CHUNK, C.TOK_OW,
+             C.TOK_MAX_LEN, 0.35, 0),
+            ("residues_fast", M // C.RES_CHUNK, C.RES_CHUNK, C.RES_OW_FAST,
+             C.RES_CAP_FAST, 0.4, 0),
+            ("residues_wide", M // C.RES_CHUNK, C.RES_CHUNK, C.RES_OW_WIDE,
+             C.RES_CAP_WIDE, 0.2, 2),
+        ]
+        for name, R, ch, ow, cap, p, ovf in cases:
+            vals, widths = _pack_case(rng, dev, R, ch, cap, p, ovf)
+            got = pack_chunks(vals, widths, ch, ow)
+            want = pack_chunks_plain(vals, widths, ch, ow)
+            torch.cuda.synchronize()
+            for g, w, n in zip(got, want, ("chunks", "chunk_bits")):
+                if not torch.equal(g, w):
+                    bad = int((g != w).sum().item())
+                    raise AssertionError(f"pack_chunks {shape} {name} {n}: "
+                                         f"{bad} mismatches")
+            pk_err = max(pk_err, max(int((g.long() - w.long()).abs().max())
+                                     for g, w in zip(got, want)))
+            case = pk[f"{shape}/{name}"] = {
+                "R": R, "ch": ch, "ow": ow,
+                "ms": _time_ms(lambda: pack_chunks(vals, widths, ch, ow)),
+                "plain_ms": _time_ms(
+                    lambda: pack_chunks_plain(vals, widths, ch, ow))}
+            print(f"pack_chunks {shape} {name} R={R} ch={ch} ow={ow} "
+                  f"cap={cap}: equal, kernel {case['ms']:.4f} ms, plain "
+                  f"{case['plain_ms']:.4f} ms", flush=True)
+    fast = ("chunk/tokens", "chunk/residues_fast")
+    return [{"name": "transport_prep", "route": "cuda",
+             "source": "hydrium_tpu_torch/csrc/transport_prep.cu",
+             "replaces": "hydrium_tpu/ops/pallas/prep.py:221",
+             "max_abs_err": tp_err, "ms": tp["chunk"]["ms"],
+             "plain_ms": tp["chunk"]["plain_ms"], "by_case": tp},
+            {"name": "chunk_pack", "route": "cuda",
+             "source": "hydrium_tpu_torch/csrc/chunk_pack.cu",
+             "replaces": "hydrium_tpu/ops/pallas/bitpack.py:203",
+             "max_abs_err": pk_err,
+             "ms": sum(pk[k]["ms"] for k in fast),
+             "plain_ms": sum(pk[k]["plain_ms"] for k in fast),
+             "by_case": pk}]
+
+
+def _frontend_case(name, px, h, w, buf, linear, kind):
+    """The frontend kernel vs its plain twin on the card for one buffer."""
+    import torch
+
+    from hydrium_tpu_torch.ops.frontend import (frontend_lfg,
+                                                frontend_lfg_plain)
+
+    kw = dict(buf_h=buf[0], buf_w=buf[1], linear_light=linear,
+              sample_kind=kind)
+    q, lf = frontend_lfg(px, h, w, **kw)
+    pq, plf = frontend_lfg_plain(px, h, w, **kw)
+    torch.cuda.synchronize()
+    flips = int((q != pq).sum().item()) + int((lf != plf).sum().item())
+    total = q.numel() + lf.numel()
+    dq = int((q - pq).abs().max().item())
+    dlf = int((lf - plf).abs().max().item())
+    ms = _time_ms(lambda: frontend_lfg(px, h, w, **kw))
+    plain_ms = _time_ms(lambda: frontend_lfg_plain(px, h, w, **kw))
+    G = (buf[0] >> 8) * (buf[1] >> 8)
+    print(f"frontend {name} G={G}: {flips} flips of {total} "
+          f"({flips / total:.2e}, bound {FRONT_FLIP_TOL:g}), max |dq| {dq}, "
+          f"max |ddc| {dlf}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+          flush=True)
+    assert flips <= FRONT_FLIP_TOL * total, (name, flips, total)
+    assert dq <= 2 and dlf <= 1, (name, dq, dlf)
+    return {"flips": flips, "values": total, "max_abs_err": max(dq, dlf),
+            "ms": ms, "plain_ms": plain_ms}
+
+
+def check_frontend(img: np.ndarray, dev):
+    """Phase 3, fused front: one 2048^2 LF group (G = 64), one stacked
+    chunk of 16 tiles (G = 16, u8 sRGB and f32 linear light), and edge
+    tiles (G = 1) whose true extent is smaller than the upload, which is
+    smaller than the buffer: the kernel's own pad and mask."""
+    import torch
+
+    lfg = torch.as_tensor(np.ascontiguousarray(img[:2048, :2048]),
+                          device=dev)
+    tiles = [img[ty * TILE:(ty + 1) * TILE, tx * TILE:(tx + 1) * TILE]
+             for ty in range(2) for tx in range(img.shape[1] // TILE)][:16]
+    stack = np.concatenate(tiles, axis=0)                 # 4096 x 256
+    stack_f32 = ((stack / np.float32(255.0)) ** 2.2).astype(np.float32)
+    # the tiled path's edge tile: true 112x256 in a zero-padded 128x256
+    # upload (rows bucketed to 32) of a 256^2 buffer
+    edge = np.zeros((128, TILE, 3), np.uint8)
+    edge[:112] = img[2048:2160, :TILE]
+    # true 112x200 in a 128x224 upload, with nonzero samples outside the
+    # true extent that the kernel must mask
+    narrow = np.full((128, 224, 3), 255, np.uint8)
+    narrow[:112, :200] = img[2048:2160, :200]
+    cases = {
+        "edge_u8": _frontend_case(
+            "edge_u8", torch.as_tensor(edge, device=dev), 112, TILE,
+            (TILE, TILE), False, "uint8"),
+        "edge_narrow_u8": _frontend_case(
+            "edge_narrow_u8", torch.as_tensor(narrow, device=dev), 112, 200,
+            (TILE, TILE), False, "uint8"),
+        "lfg_u8": _frontend_case("lfg_u8", lfg, 2048, 2048, (2048, 2048),
+                                 False, "uint8"),
+        "chunk_u8": _frontend_case(
+            "chunk_u8", torch.as_tensor(stack, device=dev), 4096, TILE,
+            (4096, TILE), False, "uint8"),
+        "chunk_f32_linear": _frontend_case(
+            "chunk_f32_linear", torch.as_tensor(stack_f32, device=dev),
+            4096, TILE, (4096, TILE), True, "float32"),
+    }
+    return {"name": "frontend_groups", "route": "cuda",
+            "source": "hydrium_tpu_torch/csrc/frontend.cu",
+            "replaces": "hydrium_tpu/ops/pallas/frontend.py:132",
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "ms": cases["chunk_u8"]["ms"],
+            "plain_ms": cases["chunk_u8"]["plain_ms"],
+            "flips": sum(c["flips"] for c in cases.values()),
+            "values": sum(c["values"] for c in cases.values()),
+            "by_case": cases,
+            "shape": "chunk_u8: 4096x256 (G=16); lfg_u8: 2048x2048 (G=64); "
+                     "chunk_f32_linear: 4096x256; edge_u8: 112x256 in "
+                     "128x256 (G=1); edge_narrow_u8: 112x200 in 128x224 "
+                     "(G=1)"}
+
+
+def encode_tiled(img: np.ndarray, fused: bool, stats) -> bytes:
+    """256^2 tiles sent one row at a time through send_tile_batch (as
+    bench.py sends tiled mode)."""
+    import torch
+
+    import hydrium_tpu_torch as H
+
+    h, w = img.shape[:2]
+    meta = H.ImageMetadata(width=w, height=h, tile_size_shift_x=0,
+                           tile_size_shift_y=0)
+    enc = H.Encoder(meta, device="cuda", fused_front=fused)
+    enc.stats = stats
+    out = bytearray()
+    for ty in range((h + TILE - 1) // TILE):
+        entries = [(img[ty * TILE:(ty + 1) * TILE,
+                        tx * TILE:(tx + 1) * TILE], tx, ty)
+                   for tx in range((w + TILE - 1) // TILE)]
+        enc.send_tile_batch(entries, sample_fmt=H.SampleFormat.UINT8)
+        out.extend(enc.take_output())
+    torch.cuda.synchronize()
+    return bytes(out)
 
 
 def make_4k(seed: int = 0) -> np.ndarray:
@@ -205,6 +335,7 @@ def main() -> int:
     from hydrium_tpu_torch import EncodeStats
     from hydrium_tpu_torch.ops import _kernels
     from hydrium_tpu_torch.ops.bitpack import pack_chunks
+    from hydrium_tpu_torch.ops.frontend import frontend_groups
     from hydrium_tpu_torch.ops.transport import transport_prep
 
     smi = subprocess.run(
@@ -223,19 +354,28 @@ def main() -> int:
           flush=True)
 
     # phase 3: kernels vs plain twins
-    results = check_kernels(dev)
-
-    # phase 4: the main path
     img = make_4k()
-    transport_prep.launches = 0
-    pack_chunks.launches = 0
+    results = check_kernels(dev)
+    results.append(check_frontend(img, dev))
+
+    def zero_counts():
+        transport_prep.launches = 0
+        pack_chunks.launches = 0
+        frontend_groups.launches = 0
+
+    def read_counts():
+        return {"transport_prep": transport_prep.launches,
+                "chunk_pack": pack_chunks.launches,
+                "frontend_groups": frontend_groups.launches}
+
+    # phase 4: one-frame mode
+    zero_counts()
     stats = EncodeStats()
     t0 = time.perf_counter()
     data = hydrium_tpu_torch.encode_image(img, device="cuda", stats=stats)
     torch.cuda.synchronize()
     t_cold = time.perf_counter() - t0
-    launches = {"transport_prep": transport_prep.launches,
-                "chunk_pack": pack_chunks.launches}
+    launches = read_counts()
     c = stats.counters
     print(f"encode 3840x2160 u8 (cold): {len(data)} bytes, {t_cold:.3f} s, "
           f"counters {dict(c)}, launches {launches}", flush=True)
@@ -273,13 +413,69 @@ def main() -> int:
         print(f"decode PSNR: {djxl.psnr(img / 255.0, dec):.4f} dB",
               flush=True)
 
+    # phase 5: tiled mode with the fused front (this slice's path)
+    th_full, tw_full = img.shape[0] // TILE, img.shape[1] // TILE
+    n_full = th_full * tw_full
+    n_edge = (-(-img.shape[0] // TILE) * -(-img.shape[1] // TILE)) - n_full
+    k_stack = 4096 // TILE
+    n_chunks = -(-n_full // k_stack)   # rows are full: runs span rows
+    zero_counts()
+    t_stats = EncodeStats()
+    t0 = time.perf_counter()
+    tiled = encode_tiled(img, True, t_stats)
+    t_tiled_cold = time.perf_counter() - t0
+    tiled_launches = read_counts()
+    tc = t_stats.counters
+    dispatches = tc.get("lfg_packed", 0) + tc.get("wide_retries", 0)
+    print(f"tiled 3840x2160 u8, 256^2 tiles, fused front (cold): "
+          f"{len(tiled)} bytes, {t_tiled_cold:.3f} s, counters {dict(tc)}, "
+          f"launches {tiled_launches}; expect {n_chunks} chunks + {n_edge} "
+          f"edge tiles", flush=True)
+    assert tc.get("lfg_packed", 0) == n_chunks + n_edge, tc
+    assert tc.get("lfg_fallback", 0) == 0, tc
+    assert tiled_launches["frontend_groups"] == dispatches > 0, tiled_launches
+    assert tiled_launches["transport_prep"] == dispatches, tiled_launches
+    assert tiled_launches["chunk_pack"] == 2 * dispatches, tiled_launches
+    assert tiled[:2] == b"\xff\x0a", tiled[:4].hex()
+
+    tw_stats = EncodeStats()
+    t0 = time.perf_counter()
+    tiled2 = encode_tiled(img, True, tw_stats)
+    t_tiled_warm = time.perf_counter() - t0
+    assert tiled2 == tiled, "second tiled encode is not byte-identical"
+    tiled_stages = {k: round(v, 4) for k, v in tw_stats.stage_seconds.items()}
+    print(f"tiled (warm, fused front): {t_tiled_warm:.3f} s, "
+          f"{mpix / t_tiled_warm:.2f} Mpix/s on {smi}; stages "
+          f"{tiled_stages}", flush=True)
+    tu_stats = EncodeStats()
+    t0 = time.perf_counter()
+    tiled_unfused = encode_tiled(img, False, tu_stats)
+    t_tiled_unfused = time.perf_counter() - t0
+    assert tiled_unfused[:2] == b"\xff\x0a"
+    assert tu_stats.counters.get("lfg_fallback", 0) == 0, tu_stats.counters
+    print(f"tiled (warm, unfused front): {t_tiled_unfused:.3f} s, "
+          f"{mpix / t_tiled_unfused:.2f} Mpix/s, {len(tiled_unfused)} bytes",
+          flush=True)
+    if ctypes.util.find_library("jxl") is not None:
+        from hydrium_tpu.utils import djxl
+
+        dec = djxl.decode(tiled)
+        assert dec.shape == img.shape, dec.shape
+        print(f"tiled decode PSNR: {djxl.psnr(img / 255.0, dec):.4f} dB",
+              flush=True)
+
     for r in results:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = tiled_launches[r["name"]]
+        r["launches_one_frame"] = launches[r["name"]]
     print(json.dumps({"kernels": results, "encode_4k": {
         "bytes": len(data), "cold_s": t_cold, "warm_s": t_warm,
         "mpix_per_s": mpix / t_warm, "stages_s": stages,
         "front_flips": flips,
-        "front_coeffs": total, "card": smi}}))
+        "front_coeffs": total, "card": smi}, "tiled_4k": {
+        "bytes": len(tiled), "cold_s": t_tiled_cold, "warm_s": t_tiled_warm,
+        "mpix_per_s": mpix / t_tiled_warm, "stages_s": tiled_stages,
+        "unfused_warm_s": t_tiled_unfused, "chunks": n_chunks,
+        "edge_tiles": n_edge, "counters": dict(tc)}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels (csrc/*.cu).
 
 The sources have a plain C interface, so they are compiled with nvcc
-straight into one shared library and bound with ctypes: seconds to
-build, where a PyTorch C++ extension takes minutes.  The library lands
-in build/torch_kernels/lib<hash>.so (hash of the sources and flags), is
+(one process per source, all started together, then one link) into one
+shared library and bound with ctypes: seconds to build, where a PyTorch
+C++ extension takes minutes.  The library lands in
+build/torch_kernels/lib<hash>.so (hash of the sources and flags), is
 built on first use and reused after that.  Nothing here runs at import
 time, so the package imports on machines without nvcc or a card.
 
@@ -20,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -29,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 
@@ -67,13 +69,26 @@ def build() -> float:
     if so.exists():
         return 0.0
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
+    nvcc, srcs = _nvcc(), sources()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                                   str(src)], stderr=subprocess.PIPE,
+                                  text=True)
+                 for src, obj in zip(srcs, objs)]
+        errors = [f"{src.name}:\n{p.communicate()[1]}"
+                  for src, p in zip(srcs, procs)]
+        errors = [e for e, p in zip(errors, procs) if p.returncode != 0]
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        lib_tmp = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp,
+                              *objs], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(lib_tmp, so)
     return time.perf_counter() - t0
 
 
@@ -88,6 +103,9 @@ def lib() -> ctypes.CDLL:
         L.hyd_transport_prep.argtypes = [P] * 7 + [I, LL] + [P] * 5
         L.hyd_chunk_pack.restype = I
         L.hyd_chunk_pack.argtypes = [P, P, LL, I, I, P, P, P]
+        L.hyd_frontend.restype = I
+        L.hyd_frontend.argtypes = [P] + [I] * 7 + [ctypes.c_float, I] \
+            + [P] * 5
         _lib = L
     return _lib
 

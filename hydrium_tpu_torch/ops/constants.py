@@ -25,6 +25,10 @@ ZZ_GATHER = (tables.ZIGZAG_KY[None, :] * 24 + tables.ZIGZAG_KX[None, :] * 3
 
 # HF quant weights in emission order [3, 64]
 HF_W_EMIT = tables.HF_QUANT_WEIGHTS[EMIT_TO_STORE].astype(np.float32)
+# ...premultiplied by HF_MULT, as the fused front applies them
+HF_W_SCALED = HF_W_EMIT * np.float32(tables.HF_MULT)
+# zig-zag position j -> ky * 8 + kx
+ZZ_POS = (tables.ZIGZAG_KY * 8 + tables.ZIGZAG_KX).astype(np.int32)
 
 # DCT-II basis with the reference's rounded constants: row 0 is the DC
 # mean row (0.125), rows 1..7 the cosine rows

@@ -1,6 +1,7 @@
 """The front of the packed path: pixels of one LF group -> integer
-tokens.  Twin of hydrium_tpu/ops/pipeline.py encode_lfg (its plain-XLA
-branch; the opt-in Pallas frontend is not ported).
+tokens.  Twin of hydrium_tpu/ops/pipeline.py encode_lfg: its plain-XLA
+branch here, and with fused=True its Pallas branch, whose kernel is
+ported as ops/frontend.py (csrc/frontend.cu).
 
 Integer conventions.  CPU torch has no uint32 arithmetic, so every
 unsigned 32-bit quantity is computed in int64 and STORED as int32 with
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 from hydrium_tpu.ops import tables
 
 from . import constants as C
+from . import frontend as _frontend
 
 _MASK32 = 0xFFFFFFFF
 
@@ -61,7 +63,8 @@ class FrontEnd(torch.nn.Module):
     """The front's constant tables as buffers (the system has no
     weights; these tables and the transport code tables are its state).
     forward() runs the float part: sample scaling, XYB, the 8x8 DCT and
-    LF/HF quantization."""
+    LF/HF quantization, unfused in torch or (fused=True) in the fused
+    front of ops/frontend.py."""
 
     def __init__(self, dct_basis, hf_w_emit, lf_shift, zz_gather,
                  cnzc3, cfc3) -> None:
@@ -88,9 +91,13 @@ class FrontEnd(torch.nn.Module):
 
     def forward(self, pixels: torch.Tensor, height: int, width: int, *,
                 buf_h: int, buf_w: int, linear_light: bool,
-                sample_kind: str):
+                sample_kind: str, fused: bool = False):
         """pixels [uh <= buf_h, uw <= buf_w, 3] -> (q_flat i32 [N, 64] in
         emission order, lf_q i32 [buf_h/8, buf_w/8, 3])."""
+        if fused:
+            return _frontend.frontend_lfg(
+                pixels, height, width, buf_h=buf_h, buf_w=buf_w,
+                linear_light=linear_light, sample_kind=sample_kind)
         uh, uw = pixels.shape[0], pixels.shape[1]
         rgb = pixels.to(torch.float32)
         if uh != buf_h or uw != buf_w:
@@ -267,14 +274,16 @@ def tokenize_flat(q: torch.Tensor, nz_flat: torch.Tensor,
 def front_tokens(front: FrontEnd, pixels: torch.Tensor, height: int,
                  width: int, presets: torch.Tensor, *, buf_h: int,
                  buf_w: int, linear_light: bool, sample_kind: str,
-                 clusters_per_preset: int,
-                 lf_seg_vb: int = 0) -> Dict[str, torch.Tensor]:
+                 clusters_per_preset: int, lf_seg_vb: int = 0,
+                 fused: bool = False) -> Dict[str, torch.Tensor]:
     """Pixels of one LF group -> the integer front outputs the packed
     tail consumes (encode_lfg without the cluster histogram).  presets:
-    [G] preset per buffer group.  Keys: lf_q, lf_res (i32 u32-bits),
-    tokens, clusters, residues, residue_bits, valid_len."""
+    [G] preset per buffer group; fused selects the fused front.  Keys:
+    lf_q, lf_res (i32 u32-bits), tokens, clusters, residues,
+    residue_bits, valid_len."""
     q_flat, lf_q = front(pixels, height, width, buf_h=buf_h, buf_w=buf_w,
-                         linear_light=linear_light, sample_kind=sample_kind)
+                         linear_light=linear_light, sample_kind=sample_kind,
+                         fused=fused)
     dev = q_flat.device
     gcy, gcx = buf_h >> 8, buf_w >> 8
     G = gcy * gcx
@@ -318,14 +327,14 @@ def cluster_histogram(out: Dict[str, torch.Tensor],
 def encode_lfg(front: FrontEnd, pixels: torch.Tensor, height: int,
                width: int, presets: torch.Tensor, *, buf_h: int, buf_w: int,
                linear_light: bool, num_clusters: int, sample_kind: str,
-               lf_seg_vb: int = 0,
-               clusters_per_preset: int = 0) -> Dict[str, torch.Tensor]:
+               lf_seg_vb: int = 0, clusters_per_preset: int = 0,
+               fused: bool = False) -> Dict[str, torch.Tensor]:
     """Twin of pipeline.encode_lfg: front_tokens plus the per-cluster
     histogram.  The unpacked fallback path runs it."""
     out = front_tokens(
         front, pixels, height, width, presets, buf_h=buf_h, buf_w=buf_w,
         linear_light=linear_light, sample_kind=sample_kind,
         clusters_per_preset=clusters_per_preset or num_clusters,
-        lf_seg_vb=lf_seg_vb)
+        lf_seg_vb=lf_seg_vb, fused=fused)
     out["hist"] = cluster_histogram(out, num_clusters)
     return out

@@ -144,13 +144,14 @@ def encode_lfg_packed(front: _front.FrontEnd, pixels: torch.Tensor,
                       tok_len: torch.Tensor, tok_code: torch.Tensor, *,
                       buf_h: int, buf_w: int, linear_light: bool,
                       sample_kind: str, lf_seg_vb: int = 0,
-                      tok_classes: int = 9,
-                      wide_residues: bool = False) -> torch.Tensor:
+                      tok_classes: int = 9, wide_residues: bool = False,
+                      fused: bool = False) -> torch.Tensor:
     """Twin of pipeline.encode_lfg_packed: pixels of one LF group ->
-    its combined packed payload (see pack_payload)."""
+    its combined packed payload (see pack_payload).  fused selects the
+    fused front (ops/frontend.py)."""
     out = _front.front_tokens(
         front, pixels, height, width, presets, buf_h=buf_h, buf_w=buf_w,
         linear_light=linear_light, sample_kind=sample_kind,
-        clusters_per_preset=tok_classes, lf_seg_vb=lf_seg_vb)
+        clusters_per_preset=tok_classes, lf_seg_vb=lf_seg_vb, fused=fused)
     return pack_payload(out, tok_len, tok_code, tok_classes=tok_classes,
                         wide_residues=wide_residues)

@@ -16,12 +16,14 @@ from hydrium_tpu.utils.stats import EncodeStats
 from hydrium_tpu_torch.ops import bitpack as TB
 from hydrium_tpu_torch.ops import constants as C
 from hydrium_tpu_torch.ops import front as TF
+from hydrium_tpu_torch.ops import frontend as TFE
 from hydrium_tpu_torch.ops import transport as TT
 
 pytestmark = pytest.mark.cuda
 
 # quantized values the card's front may flip against the CPU front
-# (float32 sums in another order, FMA contraction)
+# (float32 sums in another order, FMA contraction), and the frontend
+# kernel against its plain twin (also cbrtf against pow)
 FLIP_TOL = 1e-4
 
 
@@ -119,6 +121,74 @@ def test_wrappers_reject_bad_inputs(cuda):
     args[0] = args[0].to(torch.int32)
     with pytest.raises(ValueError):
         TT.transport_prep(*args, tok_classes=9)
+    px = torch.zeros((300, 256, 3), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):        # upload taller than the buffer
+        TFE.frontend_lfg(px, 300, 256, buf_h=256, buf_w=256,
+                         linear_light=False, sample_kind="uint8")
+
+
+def _front_pixels(kind, h, w, upload, seed):
+    rng = np.random.default_rng(seed)
+    px = np.zeros(upload + (3,), {"uint8": np.uint8, "uint16": np.uint16,
+                                  "float32": np.float32}[kind])
+    if kind == "uint8":
+        px[:h, :w] = rng.integers(0, 256, (h, w, 3))
+    elif kind == "uint16":
+        px[:h, :w] = rng.integers(0, 65536, (h, w, 3))
+    else:
+        px[:h, :w] = rng.random((h, w, 3)) ** 2.2
+    return px
+
+
+@pytest.mark.parametrize("kind,linear,h,w,buf,upload", [
+    ("uint8", False, 2048, 2048, (2048, 2048), (2048, 2048)),  # one LFG
+    ("uint8", False, 4096, 256, (4096, 256), (4096, 256)),     # tile stack
+    ("uint16", False, 300, 520, (512, 768), (320, 544)),
+    ("float32", True, 200, 300, (256, 512), (224, 320)),
+    ("uint8", False, 112, 256, (256, 256), (128, 256)),        # edge tile
+])
+def test_frontend_kernel_close_to_plain(cuda, kind, linear, h, w, buf,
+                                        upload):
+    px = torch.tensor(_front_pixels(kind, h, w, upload, h + w), device=cuda)
+    kw = dict(buf_h=buf[0], buf_w=buf[1], linear_light=linear,
+              sample_kind=kind)
+    before = TFE.frontend_groups.launches
+    q, lf = TFE.frontend_lfg(px, h, w, **kw)
+    pq, plf = TFE.frontend_lfg_plain(px, h, w, **kw)
+    torch.cuda.synchronize()
+    assert TFE.frontend_groups.launches == before + 1
+    assert q.shape == pq.shape and lf.shape == plf.shape
+    flips = int((q != pq).sum()) + int((lf != plf).sum())
+    assert flips <= FLIP_TOL * (q.numel() + lf.numel()), flips
+    assert int((q - pq).abs().max()) <= 2
+    assert int((lf - plf).abs().max()) <= 1
+
+
+def test_frontend_kernel_masks_outside_true_extent(cuda):
+    """Samples of the upload outside the true extent do not reach the
+    outputs: they equal those of the same upload zeroed there."""
+    px = _front_pixels("uint8", 112, 200, (128, 224), 7)
+    junk = px.copy()
+    junk[112:] = 255
+    junk[:, 200:] = 255
+    kw = dict(buf_h=256, buf_w=256, linear_light=False, sample_kind="uint8")
+    q0, lf0 = TFE.frontend_lfg(torch.tensor(px, device=cuda), 112, 200, **kw)
+    q1, lf1 = TFE.frontend_lfg(torch.tensor(junk, device=cuda), 112, 200,
+                               **kw)
+    assert torch.equal(q0, q1) and torch.equal(lf0, lf1)
+
+
+def test_frontend_groups_layout_on_card(cuda):
+    px = torch.tensor(_front_pixels("uint8", 256, 256, (256, 256), 3),
+                      device=cuda)
+    groups = torch.stack([px, px.flip(0), px.flip(1)])
+    q, dc = TFE.frontend_groups(groups, linear_light=False,
+                                sample_kind="uint8")
+    pq, pdc = TFE.frontend_groups_plain(groups, linear_light=False,
+                                        sample_kind="uint8")
+    assert q.shape == (3, 1024, 3, 64) and dc.shape == (3, 32, 32, 3)
+    flips = int((q != pq).sum()) + int((dc != pdc).sum())
+    assert flips <= FLIP_TOL * (q.numel() + dc.numel()), flips
 
 
 def test_card_front_flip_rate(cuda):
@@ -157,3 +227,24 @@ def test_card_encode_equals_cpu_encode_with_shared_front(cuda, monkeypatch):
     assert stats.counters["lfg_packed"] == 2
     assert TT.transport_prep.launches - launches[0] == 2
     assert TB.pack_chunks.launches - launches[1] == 4
+
+
+def test_card_tiled_encode_equals_cpu_encode_with_shared_front(cuda,
+                                                              monkeypatch):
+    """Tiled mode (stacked chunks and edge tiles) with the front's
+    integers from the CPU front: the card's bytes equal the CPU's."""
+    real = TF.front_tokens
+
+    def cpu_front(front, pixels, *a, **k):
+        out = real(TF.FrontEnd.from_tables(), pixels.cpu(), *a, **k)
+        return {key: v.to(pixels.device) for key, v in out.items()}
+
+    monkeypatch.setattr(TF, "front_tokens", cpu_front)
+    img = np.random.default_rng(5).integers(0, 256, (600, 1100, 3),
+                                            dtype=np.uint8)
+    want = hydrium_tpu_torch.encode_image(img, 0, device="cpu")
+    stats = EncodeStats()
+    got = hydrium_tpu_torch.encode_image(img, 0, device="cuda", stats=stats)
+    assert got == want
+    # rows of 4 full tiles and one edge tile, the last row all edges
+    assert stats.counters["lfg_packed"] == 2 + 2 + 5

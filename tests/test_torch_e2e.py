@@ -27,9 +27,13 @@ from hydrium_tpu.ops import pipeline as P
 from hydrium_tpu.ops import tables
 from hydrium_tpu.utils import djxl
 from hydrium_tpu.utils.stats import EncodeStats
+from hydrium_tpu_torch.host import ensure_native
 from hydrium_tpu_torch.ops import front as TF
 from hydrium_tpu_torch.ops import packed as TP
 from test_e2e import make_image
+
+# every test worker builds the native plane, or waits for it, here
+ensure_native()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _VIEWS = {"tokens": np.int16, "residues": np.int32, "lf_res": np.int32}
@@ -37,8 +41,9 @@ _VIEWS = {"tokens": np.int16, "residues": np.int32, "lf_res": np.int32}
 
 def jax_front_tokens(front, pixels, height, width, presets, *, buf_h, buf_w,
                      linear_light, sample_kind, clusters_per_preset,
-                     lf_seg_vb=0):
-    """Drop-in for front.front_tokens that runs JAX encode_lfg."""
+                     lf_seg_vb=0, fused=False):
+    """Drop-in for front.front_tokens that runs JAX encode_lfg (its XLA
+    branch, whichever front `fused` asks for)."""
     out = P.encode_lfg(jnp.asarray(pixels.cpu().numpy()), height, width,
                        jnp.asarray(presets.cpu().numpy()),
                        jnp.asarray(tables.hf_cluster_map(1)), buf_h=buf_h,
@@ -145,13 +150,16 @@ def test_checksum_mismatch_raises(monkeypatch):
 
 
 def test_scope_limits_raise():
+    """Tiled mode is in scope (test_torch_tiled); a tile outside the
+    image and a card that is not there still raise."""
     img = make_image(64, 64, "smooth")
-    with pytest.raises(NotImplementedError):
-        hydrium_tpu_torch.encode_image(img, tile_size_shift=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        hydrium_tpu_torch.Encoder(ImageMetadata(64, 64, tile_size_shift_x=1,
-                                                tile_size_shift_y=1),
-                                  device="cpu")
+    assert hydrium_tpu_torch.encode_image(img, tile_size_shift=0,
+                                          device="cpu")[:2] == b"\xff\x0a"
+    enc = hydrium_tpu_torch.Encoder(ImageMetadata(64, 64, tile_size_shift_x=1,
+                                                  tile_size_shift_y=1),
+                                    device="cpu")
+    with pytest.raises(ValueError, match="out of bounds"):
+        enc.send_tile(img, 1, 0)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             hydrium_tpu_torch.encode_image(img, device="cuda")
