@@ -7,26 +7,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the hand-written CUDA kernels from hydrium_tpu_torch/csrc;
 3. each kernel against its plain torch twin on the card, at the shapes
-   the encode paths give it: transport prep and chunk pack at one
-   2048x2048 LF group, one stacked tiled chunk and one edge tile,
-   exactly equal; the fused front at one LF group (G = 64), one stacked
-   tiled chunk (G = 16, u8 sRGB and f32 linear) and two edge tiles
-   (G = 1, true extent inside a smaller upload), within a flip bound.
-   Median CUDA-event times of kernel and twin;
+   the encode paths give it: transport prep (all six outputs of the
+   stage) and chunk pack at one 2048x2048 LF group, one stacked tiled
+   chunk and one edge tile, exactly equal, and transport prep also at a
+   row count that HS does not divide and with one valid token >= 64;
+   the fused front at one LF group (G = 64), one stacked tiled chunk
+   (G = 16, u8 sRGB and f32 linear) and two edge tiles (G = 1, true
+   extent inside a smaller upload), within a flip bound.  For each case:
+   the kernel's device time (torch.profiler, median of 20), the time of
+   one call between CUDA events with its host work (median of 20), the
+   plain twin's, and the bound (bytes over 3.35 TB/s or float32
+   operations over 67 TFLOP/s, whichever is larger);
 4. one-frame mode: hydrium_tpu_torch.encode_image on a 3840x2160 u8
    image (noise + sinusoid, from a seed), one frame of four LF groups.
-   Checks: all four LF groups packed, no fallback, the transport and
-   pack kernels launched by the encode, the JPEG XL signature, a
-   byte-identical second encode, the card's front integers against the
-   port's CPU front on one 2048^2 LF group (flip rate <= 1e-4), and,
-   where libjxl loads, decode PSNR;
-5. tiled mode (this slice's path): the same image in 256^2 tiles, sent
-   one row at a time through Encoder.send_tile_batch with the fused
-   front.  Checks: every stacked chunk and edge tile packed, no
-   fallback, each kernel launched exactly as often as the dispatches
-   need, the
-   signature, a byte-identical second encode, decode PSNR where libjxl
-   loads; also the warm time with the unfused front.
+   Checks: all four LF groups packed, no fallback, each kernel launched
+   exactly as often as the dispatches need, the JPEG XL signature, a
+   byte-identical second encode, the same with the fused front, the
+   card's front integers against the port's CPU front on one 2048^2 LF
+   group (flip rate <= 1e-4), and, where libjxl loads, decode PSNR;
+5. tiled mode: the same image in 256^2 tiles, sent one row at a time
+   through Encoder.send_tile_batch with the fused front.  Checks: every
+   stacked chunk and edge tile packed, no fallback, each kernel launched
+   exactly as often as the dispatches need, the signature, a
+   byte-identical second encode, decode PSNR where libjxl loads; also
+   the warm time and launches with the unfused front.
+Each encode path's launch counts are zeroed just before it and read
+just after it.
 
 Prints one JSON line of kernel results, then as the last line
 {"ok": true, "device": {...}}.
@@ -51,6 +57,9 @@ TILE = 256
 
 
 def _time_ms(fn, reps: int = 20) -> float:
+    """Median of `reps` calls of fn, each between two CUDA events: the
+    time of one call with its host work (argument checks, allocation,
+    the ctypes call) as the device sees it."""
     import torch
 
     fn()
@@ -67,10 +76,50 @@ def _time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def _transport_case(rng, dev, N: int):
+def _device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Median duration of the device events named `kernel` over `reps`
+    calls of fn, from torch.profiler: the kernel alone, without its
+    launch or any host code.  A trace on the card now and then loses
+    some device events; one that kept fewer than half is taken again,
+    up to five times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durs = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.name]
+        if len(durs) != reps:
+            print(f"profiler trace {attempt + 1} saw {len(durs)} launches "
+                  f"of {kernel}, want {reps}", flush=True)
+        if 2 * len(durs) >= reps:
+            return statistics.median(durs) / 1e3
+    raise AssertionError(f"profiler lost most launches of {kernel} in "
+                         "five traces")
+
+
+def _bound_ms(n_bytes: int, n_ops: int = 0) -> tuple:
+    """Least time the card could take: the larger of the bytes over the
+    memory rate and the float32 operations over the non-tensor-core
+    float32 peak (PEAK_* below).  Returns (ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / PEAK_F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _transport_case(rng, dev, N: int, max_tok: int = 64):
+    """Transport stage inputs from a seed; tokens below max_tok."""
     import torch
 
-    tokens = rng.integers(0, 80, (N, 64)).astype(np.int16)
+    tokens = rng.integers(0, max_tok, (N, 64)).astype(np.int16)
     clusters = rng.integers(0, 27, (N, 64)).astype(np.uint8)
     valid_len = rng.integers(0, 65, N).astype(np.int32)
     valid_len[:6] = [0, 1, 64, 64, 0, 33]
@@ -105,44 +154,77 @@ def _pack_case(rng, dev, R: int, ch: int, cap: int, p: float,
 # groups of 3072 [64]-slot rows: one 2048^2 LF group (one-frame mode),
 # one stacked chunk of 16 tiles and one edge tile (tiled mode)
 KERNEL_SHAPES = {"lfg": 64, "chunk": 16, "edge": 1}
+# the card's rates for the bounds (H100 SXM data sheet): HBM3 bytes/s
+# and float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+
+
+def _transport_bytes(N: int) -> int:
+    """Bytes transport_prep must move for N rows: per slot a u16 token,
+    u8 cluster, u32 residue and u8 width read and four u32 words
+    written; valid_len, the two code tables read; histogram and tok_ok
+    written."""
+    return N * 64 * (8 + 16) + N * 4 + 2 * 640 * 4 + 576 * 4 + 1
+
+
+def _check_transport(name, args, hs, timed=True):
+    """transport_prep vs its plain twin on the card: all six outputs
+    exactly equal.  Returns the case's record."""
+    import torch
+
+    from hydrium_tpu_torch.ops.transport import (transport_prep,
+                                                 transport_prep_plain)
+
+    N = args[2].shape[0]
+    got = transport_prep(*args, tok_classes=9, hs=hs)
+    want = transport_prep_plain(*args, tok_classes=9, hs=hs)
+    torch.cuda.synchronize()
+    names = ("t_flat", "t_bits", "hist", "r_flat", "r_bits", "tok_ok")
+    for g, w, n in zip(got, want, names):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            bad = int((g != w).sum().item())
+            raise AssertionError(f"transport_prep {name} {n}: {bad} "
+                                 "mismatches")
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in
+              zip(got, want))
+    rec = {"N": N, "hs": hs, "tok_ok": bool(got[5]), "max_abs_err": err}
+    if timed:
+        run = lambda: transport_prep(*args, tok_classes=9, hs=hs)
+        rec["ms"] = _time_ms(run)
+        rec["device_ms"] = _device_ms(run, "transport_prep_kernel")
+        rec["plain_ms"] = _time_ms(lambda: transport_prep_plain(
+            *args, tok_classes=9, hs=hs))
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(_transport_bytes(N))
+        print(f"transport_prep {name} N={N} hs={hs}: six outputs equal "
+              f"(tok_ok {rec['tok_ok']}); device {rec['device_ms']:.4f} ms,"
+              f" per call host included {rec['ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms "
+              f"({rec['bound_ms'] / rec['device_ms']:.0%}), plain "
+              f"{rec['plain_ms']:.4f} ms", flush=True)
+    else:
+        print(f"transport_prep {name} N={N} hs={hs}: six outputs equal "
+              f"(tok_ok {rec['tok_ok']})", flush=True)
+    return rec
 
 
 def check_kernels(dev):
     """Phase 3: transport prep and chunk pack vs their plain twins, exactly
-    equal, at every main-path shape.  The JSON times are the stacked
-    chunk's (the tiled path); by_case holds all of them."""
+    equal, at every main-path shape, and transport prep also where HS
+    does not divide N and with one valid token >= 64.  The top-level
+    times are the LF group's (one-frame mode); by_case holds all."""
     import torch
 
     from hydrium_tpu_torch.ops import constants as C
     from hydrium_tpu_torch.ops.bitpack import pack_chunks, pack_chunks_plain
-    from hydrium_tpu_torch.ops.transport import (transport_prep,
-                                                 transport_prep_plain)
 
+    HS = C.HIST_SAMPLE_STRIDE
     rng = np.random.default_rng(2160)
-    tp, tp_err = {}, 0
+    tp = {}
     pk, pk_err = {}, 0
     for shape, G in KERNEL_SHAPES.items():
         N = G * 3072
-        args = _transport_case(rng, dev, N)
-        got = transport_prep(*args, tok_classes=9)
-        want = transport_prep_plain(*args, tok_classes=9)
-        torch.cuda.synchronize()
-        names = ("t_flat", "t_bits", "r_flat", "r_bits")
-        for g, w, n in zip(got, want, names):
-            if not torch.equal(g, w):
-                bad = int((g != w).sum().item())
-                raise AssertionError(f"transport_prep {shape} {n}: {bad} "
-                                     "mismatches")
-        tp_err = max(tp_err, max(int((g.long() - w.long()).abs().max())
-                                 for g, w in zip(got, want)))
-        tp[shape] = {
-            "N": N, "ms": _time_ms(lambda: transport_prep(*args,
-                                                          tok_classes=9)),
-            "plain_ms": _time_ms(lambda: transport_prep_plain(
-                *args, tok_classes=9))}
-        print(f"transport_prep {shape} N={N}: equal, kernel "
-              f"{tp[shape]['ms']:.4f} ms, plain {tp[shape]['plain_ms']:.4f} "
-              "ms", flush=True)
+        tp[shape] = _check_transport(shape, _transport_case(rng, dev, N), HS)
 
         M = N * 64
         cases = [
@@ -165,27 +247,50 @@ def check_kernels(dev):
                                          f"{bad} mismatches")
             pk_err = max(pk_err, max(int((g.long() - w.long()).abs().max())
                                      for g, w in zip(got, want)))
+            run = lambda: pack_chunks(vals, widths, ch, ow)
+            bound, by = _bound_ms(R * ch * 8 + R * ow * 4 + R * 4)
             case = pk[f"{shape}/{name}"] = {
-                "R": R, "ch": ch, "ow": ow,
-                "ms": _time_ms(lambda: pack_chunks(vals, widths, ch, ow)),
+                "R": R, "ch": ch, "ow": ow, "ms": _time_ms(run),
+                "device_ms": _device_ms(run, "chunk_pack_kernel"),
                 "plain_ms": _time_ms(
-                    lambda: pack_chunks_plain(vals, widths, ch, ow))}
+                    lambda: pack_chunks_plain(vals, widths, ch, ow)),
+                "bound_ms": bound, "bound_by": by}
             print(f"pack_chunks {shape} {name} R={R} ch={ch} ow={ow} "
-                  f"cap={cap}: equal, kernel {case['ms']:.4f} ms, plain "
+                  f"cap={cap}: equal; device {case['device_ms']:.4f} ms, "
+                  f"per call host included {case['ms']:.4f} ms, bound "
+                  f"{bound:.4f} ms ({bound / case['device_ms']:.0%}), plain "
                   f"{case['plain_ms']:.4f} ms", flush=True)
-    fast = ("chunk/tokens", "chunk/residues_fast")
+    # the stage's two edge cases: every row sampled (hs 1) with all
+    # tokens < 64, and one valid token >= 64 among tokens < 64
+    odd = _transport_case(rng, dev, 3073)
+    tp["rows_not_multiple_of_hs"] = _check_transport(
+        "rows_not_multiple_of_hs", odd, 1, timed=False)
+    assert tp["rows_not_multiple_of_hs"]["tok_ok"]
+    tok64 = _transport_case(rng, dev, 3072)
+    tok64[0][2, 5] = 64                      # row 2 has valid_len 64
+    tp["token_ge_64"] = _check_transport("token_ge_64", tok64, HS,
+                                         timed=False)
+    assert not tp["token_ge_64"]["tok_ok"]
+    main = ("lfg/tokens", "lfg/residues_fast")
+    top = tp["lfg"]
     return [{"name": "transport_prep", "route": "cuda",
              "source": "hydrium_tpu_torch/csrc/transport_prep.cu",
              "replaces": "hydrium_tpu/ops/pallas/prep.py:221",
-             "max_abs_err": tp_err, "ms": tp["chunk"]["ms"],
-             "plain_ms": tp["chunk"]["plain_ms"], "by_case": tp},
+             "max_abs_err": max(c["max_abs_err"] for c in tp.values()),
+             "ms": top["ms"], "device_ms": top["device_ms"],
+             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+             "bound_by": top["bound_by"], "library_ms": None,
+             "shape": "LF group, N = 196608", "by_case": tp},
             {"name": "chunk_pack", "route": "cuda",
              "source": "hydrium_tpu_torch/csrc/chunk_pack.cu",
              "replaces": "hydrium_tpu/ops/pallas/bitpack.py:203",
              "max_abs_err": pk_err,
-             "ms": sum(pk[k]["ms"] for k in fast),
-             "plain_ms": sum(pk[k]["plain_ms"] for k in fast),
-             "by_case": pk}]
+             "ms": sum(pk[k]["ms"] for k in main),
+             "device_ms": sum(pk[k]["device_ms"] for k in main),
+             "plain_ms": sum(pk[k]["plain_ms"] for k in main),
+             "bound_ms": sum(pk[k]["bound_ms"] for k in main),
+             "bound_by": "bytes", "library_ms": None,
+             "shape": "LF group, tokens + residues fast", "by_case": pk}]
 
 
 def _frontend_case(name, px, h, w, buf, linear, kind):
@@ -204,17 +309,27 @@ def _frontend_case(name, px, h, w, buf, linear, kind):
     total = q.numel() + lf.numel()
     dq = int((q - pq).abs().max().item())
     dlf = int((lf - plf).abs().max().item())
-    ms = _time_ms(lambda: frontend_lfg(px, h, w, **kw))
+    run = lambda: frontend_lfg(px, h, w, **kw)
+    ms = _time_ms(run)
+    device_ms = _device_ms(run, "frontend_kernel")
     plain_ms = _time_ms(lambda: frontend_lfg_plain(px, h, w, **kw))
     G = (buf[0] >> 8) * (buf[1] >> 8)
+    # bytes: the upload read once, q and the DC grid written once;
+    # operations: ~145 float32 operations per pixel of the buffer (XYB
+    # ~40, two 8-tap DCT passes ~32 per coefficient and channel, the
+    # quantization ~3)
+    bound, by = _bound_ms(px.numel() * px.element_size()
+                          + 4 * (q.numel() + lf.numel()), 145 * G * 65536)
     print(f"frontend {name} G={G}: {flips} flips of {total} "
           f"({flips / total:.2e}, bound {FRONT_FLIP_TOL:g}), max |dq| {dq}, "
-          f"max |ddc| {dlf}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-          flush=True)
+          f"max |ddc| {dlf}; device {device_ms:.4f} ms, per call host "
+          f"included {ms:.4f} ms, bound {bound:.4f} ms "
+          f"({bound / device_ms:.0%}), plain {plain_ms:.4f} ms", flush=True)
     assert flips <= FRONT_FLIP_TOL * total, (name, flips, total)
     assert dq <= 2 and dlf <= 1, (name, dq, dlf)
     return {"flips": flips, "values": total, "max_abs_err": max(dq, dlf),
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by}
 
 
 def check_frontend(img: np.ndarray, dev):
@@ -254,16 +369,18 @@ def check_frontend(img: np.ndarray, dev):
             "chunk_f32_linear", torch.as_tensor(stack_f32, device=dev),
             4096, TILE, (4096, TILE), True, "float32"),
     }
+    top = cases["lfg_u8"]
     return {"name": "frontend_groups", "route": "cuda",
             "source": "hydrium_tpu_torch/csrc/frontend.cu",
             "replaces": "hydrium_tpu/ops/pallas/frontend.py:132",
             "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-            "ms": cases["chunk_u8"]["ms"],
-            "plain_ms": cases["chunk_u8"]["plain_ms"],
+            "ms": top["ms"], "device_ms": top["device_ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
             "flips": sum(c["flips"] for c in cases.values()),
             "values": sum(c["values"] for c in cases.values()),
             "by_case": cases,
-            "shape": "chunk_u8: 4096x256 (G=16); lfg_u8: 2048x2048 (G=64); "
+            "shape": "lfg_u8: 2048x2048 (G=64); chunk_u8: 4096x256 (G=16); "
                      "chunk_f32_linear: 4096x256; edge_u8: 112x256 in "
                      "128x256 (G=1); edge_narrow_u8: 112x200 in 128x224 "
                      "(G=1)"}
@@ -381,8 +498,10 @@ def main() -> int:
           f"counters {dict(c)}, launches {launches}", flush=True)
     assert c.get("lfg_packed", 0) == 4, c
     assert c.get("lfg_fallback", 0) == 0, c
-    assert launches["transport_prep"] >= 4, launches
-    assert launches["chunk_pack"] >= 8, launches
+    dispatches = c["lfg_packed"] + c.get("wide_retries", 0)
+    assert launches["transport_prep"] == dispatches, launches
+    assert launches["chunk_pack"] == 2 * dispatches, launches
+    assert launches["frontend_groups"] == 0, launches
     assert data[:2] == b"\xff\x0a", data[:4].hex()
 
     warm_stats = EncodeStats()
@@ -398,6 +517,22 @@ def main() -> int:
           f"{mpix / t_warm:.2f} Mpix/s on {smi}; stages {stages}",
           flush=True)
 
+    # the same one-frame encode with the fused front, for its launches
+    zero_counts()
+    f_stats = EncodeStats()
+    fused_data = hydrium_tpu_torch.encode_image(img, device="cuda",
+                                                stats=f_stats,
+                                                fused_front=True)
+    torch.cuda.synchronize()
+    fused_launches = read_counts()
+    fc = f_stats.counters
+    print(f"encode 3840x2160 u8, fused front: {len(fused_data)} bytes, "
+          f"counters {dict(fc)}, launches {fused_launches}", flush=True)
+    assert fc.get("lfg_packed", 0) == 4 and not fc.get("lfg_fallback"), fc
+    assert fused_launches["frontend_groups"] == fused_launches[
+        "transport_prep"] == fc["lfg_packed"] + fc.get("wide_retries", 0)
+    assert fused_data[:2] == b"\xff\x0a"
+
     flips, total = front_flips(img, dev)
     print(f"front flips card vs CPU (LF group 0,0): {flips} of {total} "
           f"({flips / total:.2e}, bound {FRONT_FLIP_TOL:g})", flush=True)
@@ -406,7 +541,7 @@ def main() -> int:
     if ctypes.util.find_library("jxl") is None:
         print("decode PSNR: not run (no libjxl on this machine)", flush=True)
     else:
-        from hydrium_tpu.utils import djxl   # the repo's libjxl oracle
+        from hydrium_tpu_torch.utils import djxl   # libjxl oracle
 
         dec = djxl.decode(data)
         assert dec.shape == img.shape, dec.shape
@@ -447,26 +582,35 @@ def main() -> int:
     print(f"tiled (warm, fused front): {t_tiled_warm:.3f} s, "
           f"{mpix / t_tiled_warm:.2f} Mpix/s on {smi}; stages "
           f"{tiled_stages}", flush=True)
+    zero_counts()
     tu_stats = EncodeStats()
     t0 = time.perf_counter()
     tiled_unfused = encode_tiled(img, False, tu_stats)
     t_tiled_unfused = time.perf_counter() - t0
+    unfused_launches = read_counts()
     assert tiled_unfused[:2] == b"\xff\x0a"
     assert tu_stats.counters.get("lfg_fallback", 0) == 0, tu_stats.counters
+    assert unfused_launches["frontend_groups"] == 0, unfused_launches
+    assert unfused_launches["transport_prep"] == tu_stats.counters[
+        "lfg_packed"] + tu_stats.counters.get("wide_retries", 0)
     print(f"tiled (warm, unfused front): {t_tiled_unfused:.3f} s, "
-          f"{mpix / t_tiled_unfused:.2f} Mpix/s, {len(tiled_unfused)} bytes",
-          flush=True)
+          f"{mpix / t_tiled_unfused:.2f} Mpix/s, {len(tiled_unfused)} bytes, "
+          f"launches {unfused_launches}", flush=True)
     if ctypes.util.find_library("jxl") is not None:
-        from hydrium_tpu.utils import djxl
+        from hydrium_tpu_torch.utils import djxl
 
         dec = djxl.decode(tiled)
         assert dec.shape == img.shape, dec.shape
         print(f"tiled decode PSNR: {djxl.psnr(img / 255.0, dec):.4f} dB",
               flush=True)
 
+    # "launches" is the tiled run with the fused front, the path that runs
+    # all three kernels; each path's counts were zeroed just before it
+    paths = {"one_frame": launches, "one_frame_fused": fused_launches,
+             "tiled_fused": tiled_launches, "tiled": unfused_launches}
     for r in results:
         r["launches"] = tiled_launches[r["name"]]
-        r["launches_one_frame"] = launches[r["name"]]
+        r["launches_by_path"] = {k: v[r["name"]] for k, v in paths.items()}
     print(json.dumps({"kernels": results, "encode_4k": {
         "bytes": len(data), "cold_s": t_cold, "warm_s": t_warm,
         "mpix_per_s": mpix / t_warm, "stages_s": stages,

@@ -3,39 +3,52 @@
 The device half of hydrium_tpu's jax backend, ported: each LF group (in
 tiled mode: each tile, or a stack of full-size tiles) runs the packed
 pipeline (ops/packed.py) on the device, the host copies back the aux
-prefix and then exactly the stream words it needs, and the jax-free
-host plane of hydrium_tpu (payload parser, C++ walker, ANS, frame/TOC
-assembly, streaming output) does the rest.  Frame assembly and the
-tiled-mode unit bookkeeping are inherited from hydrium_tpu.encoder.
-Encoder, so the output bytes follow the same code as backend="jax".
+prefix and then exactly the stream words it needs, and the port's own
+host plane (host.py's payload parser, the C++ walker, ANS, frame/TOC
+assembly, streaming output; copies of hydrium_tpu's) does the rest.
+The frame assembly and the tiled-mode unit bookkeeping follow
+hydrium_tpu.encoder.Encoder's, so the output bytes equal
+backend="jax"'s.
+
+Preserves the reference's streaming API contract (libhydrium.h:165-314):
+metadata first, then tiles in any order (`send_tile`), encoded bytes
+drained incrementally (`take_output`).  In one-frame mode every
+multi-group frame streams (per-preset ANS as each preset's last LF
+group arrives, sections spooled), as the jax backend does.
 
 Dispatch is synchronous: dispatch, then copy back, per LF group or
 stacked chunk.  The native serialization plane is required (the packed
 path is where the device kernels are).  The transport code starts from
-its generic prior in every Encoder and never touches the JAX package's
-on-disk warm state; it changes payload size, never output bytes.
+its generic prior in every Encoder; it changes payload size, never
+output bytes.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+import shutil
+import tempfile
+import weakref
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from hydrium_tpu import encoder as _host
-from hydrium_tpu.config import ImageMetadata, SampleFormat
-from hydrium_tpu.jxl.frame import HFStream, LFGroupGeometry
-from hydrium_tpu.jxl.tokcode import LF_CLASS, TokenCodec
-from hydrium_tpu.utils.stats import EncodeStats
-
+from . import host as _host
+from .config import ImageMetadata, SampleFormat
 from .device import resolve_device
-from .host import ensure_native
+from .jxl import headers, native
+from .jxl.bitwriter import BitWriter
+from .jxl.frame import (FrameGeometry, HFStream, LFGroupGeometry,
+                        StreamingHFStream, TOC_TABLE, new_bitwriter,
+                        write_frame_header, write_lf_global, write_lf_group)
+from .jxl.tokcode import LF_CLASS, TokenCodec
 from .ops import front as _front
 from .ops import packed as _packed
 from .ops.constants import packed_aux_len
 from .ops.frontend import default_fused
+from .utils.stats import EncodeStats
 
 
 class _TorchDispatch:
@@ -100,7 +113,7 @@ class _TorchDispatch:
         while True:
             combined = self._dispatch()
             aux = combined[:A].cpu().numpy()
-            if not _host.packed_verify(aux, None, self.buf_h, self.buf_w):
+            if not _host.packed_verify(aux, None):
                 raise RuntimeError("packed payload aux checksum mismatch")
             if int(aux[0]) == 2 and not self.wide:
                 # a residue chunk or field exceeded the fast budget:
@@ -111,9 +124,9 @@ class _TorchDispatch:
             break
         words = None
         if aux[0] & 1:
-            need = _host.packed_need_words(aux, self.buf_h, self.buf_w)
+            need = _host.packed_need_words(aux)
             words = combined[A:A + need + 1].cpu().numpy().view(np.uint32)
-            if not _host.packed_verify(aux, words, self.buf_h, self.buf_w):
+            if not _host.packed_verify(aux, words):
                 raise RuntimeError("packed payload stream checksum mismatch")
         self.codec.update(aux[8:648])
         return aux, words
@@ -163,33 +176,236 @@ class _TorchDispatch:
         return lf_q, lf_res
 
 
-class Encoder(_host.Encoder):
-    """Streaming encoder whose device plane is PyTorch on `device`
-    ("cuda" needs a card; "cpu" runs the kernels' plain twins).  The API
-    is hydrium_tpu.Encoder's: send_tile, send_tile_batch (tiled mode),
-    take_output, iter_output, close.  fused_front selects the fused
-    front (ops/frontend.py); None means as HYDRIUM_PALLAS says, which is
-    off unless it is "1"."""
+class _SectionSpool:
+    """Raw (unpadded) frame sections, optionally spooled to disk, for
+    the streaming finalize path: only section *sizes* stay in RAM, the
+    bytes stream back out at emission time.
+
+    Each spool owns a unique temp subdirectory of spool_dir (removed by
+    close() once the finalize stream has been emitted, with a
+    weakref.finalize backstop for GC, crash or interpreter exit), so
+    concurrent encoders pointed at one scratch dir never overwrite each
+    other's section files."""
+
+    def __init__(self, spool_dir: Optional[str]) -> None:
+        self.dir = None
+        self._cleanup = None
+        if spool_dir is not None:
+            self.dir = tempfile.mkdtemp(prefix="hydspool-", dir=spool_dir)
+            self._cleanup = weakref.finalize(self, shutil.rmtree,
+                                             self.dir, True)
+        self._count = 0
+        self.items: List = []    # (data|path, tail_val, tail_bits, nbytes)
+
+    def close(self) -> None:
+        """Remove the spool directory now (idempotent; otherwise runs
+        via weakref.finalize at GC or interpreter exit)."""
+        if self._cleanup is not None:
+            self._cleanup()
+
+    def add_raw(self, raw) -> None:
+        data, tail_val, tail_bits = raw
+        if self.dir is not None:
+            path = os.path.join(self.dir, f"lfsec{self._count}.bin")
+            self._count += 1
+            with open(path, "wb") as f:
+                f.write(data)
+            self.items.append((path, tail_val, tail_bits, len(data)))
+        else:
+            self.items.append((data, tail_val, tail_bits, len(data)))
+
+    def padded_size(self, i: int) -> int:
+        _, _, tail_bits, nbytes = self.items[i]
+        return nbytes + (1 if tail_bits else 0)
+
+    def emit(self, i: int, chunk: int = 1 << 22):
+        src, tail_val, tail_bits, _ = self.items[i]
+        if isinstance(src, str):
+            with open(src, "rb") as f:
+                while True:
+                    b = f.read(chunk)
+                    if not b:
+                        break
+                    yield b
+        else:
+            yield src
+        if tail_bits:
+            yield bytes([tail_val & 0xFF])
+
+
+class _FrameAssembler:
+    """Section buffer + TOC bookkeeping for a single frame
+    (mirrors working_writer/section_endpos, internal.h:56-67)."""
+
+    def __init__(self, multi_section: bool) -> None:
+        self.working = new_bitwriter()
+        self.multi_section = multi_section
+        self.section_endpos: List[int] = []
+
+    def end_section(self) -> None:
+        if self.multi_section:
+            self.working.zero_pad()
+            self.section_endpos.append(len(self.working))
+
+    def write_toc_sizes(self, bw: BitWriter) -> None:
+        bw.zero_pad()
+        if self.multi_section:
+            last = 0
+            for pos in self.section_endpos:
+                bw.write_u32(TOC_TABLE, pos - last)
+                last = pos
+        else:
+            self.working.zero_pad()
+            bw.write_u32(TOC_TABLE, len(self.working))
+        bw.zero_pad()
+
+
+class Encoder:
+    """Streaming encoder with hydrium's tile contract, whose device plane
+    is PyTorch on `device` ("cuda" needs a card; "cpu" runs the kernels'
+    plain twins).  The API is hydrium_tpu.Encoder's: send_tile,
+    send_tile_batch (tiled mode), take_output, iter_output, close and
+    set_suggested_icc_profile.  fused_front selects the fused front
+    (ops/frontend.py); None means as HYDRIUM_PALLAS says, which is off
+    unless it is "1".  streaming=False keeps a multi-group one-frame
+    encode in RAM and encodes its ANS sections at the end; spool_dir
+    spools a streaming encode's sections to disk."""
 
     def __init__(self, metadata: ImageMetadata, device="cuda",
                  streaming: Optional[bool] = None,
                  spool_dir: Optional[str] = None,
                  fused_front: Optional[bool] = None) -> None:
-        if not ensure_native():
+        metadata.validate()
+        if not native.available():
             raise RuntimeError("the native serialization plane "
-                               "(cpp/serializer.cc) failed to build; the "
-                               "packed device path needs it")
+                               "(csrc/host/serializer.cc) failed to build; "
+                               "the packed device path needs it")
         self.device = resolve_device(device)
-        if streaming is None and metadata.one_frame:
-            # the jax backend's rule: stream every multi-group one-frame
-            # encode (the base class adds the multi-group condition)
-            streaming = True
-        super().__init__(metadata, backend="torch", streaming=streaming,
-                         spool_dir=spool_dir)
+        self.metadata = m = metadata
+        self.spool_dir = spool_dir
+        self.stats = EncodeStats()
+        self._out = bytearray()
+        self._emit_iter = None
+        self._wrote_header = False
+        self._finished = False
+        self._icc_payload = None
+        self._tb_units = []          # tiled-mode in-flight batch units
+        self._tb_run = []            # pending cross-call stacked run
+        self._tb_run_fmt = None      # the pending run's sample format
+        self._tb_flush_pending = False
+        self._tb_pool_ = None
         self._codec = TokenCodec()
         self._front = _front.FrontEnd.from_tables().to(self.device)
         self.fused_front = (default_fused() if fused_front is None
                             else bool(fused_front))
+        # the jax backend's rule: stream every multi-group one-frame
+        # encode (single-group frames use a 1-entry TOC with all sections
+        # concatenated, which only the at-finalize assembler writes)
+        multi_group = ((m.width + 255) // 256) * ((m.height + 255) // 256) > 1
+        self.streaming = (m.one_frame and multi_group
+                          and (streaming is None or bool(streaming)))
+        if m.one_frame:
+            self._lfgs = [
+                LFGroupGeometry(
+                    x=x, y=y,
+                    width=min(2048, m.width - x * 2048),
+                    height=min(2048, m.height - y * 2048),
+                    tile_count_x=8, tile_count_y=8)
+                for y in range(m.lfg_count_y) for x in range(m.lfg_count_x)
+            ]
+            self._geo = FrameGeometry(
+                image_width=m.width, image_height=m.height, one_frame=True,
+                lfg_count_x=m.lfg_count_x, lf_groups=self._lfgs,
+                lfg_arrival=[])
+            self._assembler: Optional[_FrameAssembler] = None
+            self._lf_spool: Optional[_SectionSpool] = None
+            self._hf = None
+            self._sent = set()
+
+    # -- public API -----------------------------------------------------
+
+    def send_tile(self, pixels, tile_x: int = 0, tile_y: int = 0,
+                  is_last: int = -1,
+                  sample_fmt: SampleFormat = SampleFormat.UINT8) -> None:
+        """Encode one tile.  `pixels` is [tile_h, tile_w, 3] in the tile's
+        actual (possibly clipped) dimensions, or a (r, g, b) tuple of
+        planar [tile_h, tile_w] arrays.  Strided numpy views are accepted
+        either way."""
+        if self._finished:
+            raise RuntimeError("tile sent after the last tile")
+        if isinstance(pixels, (tuple, list)):
+            pixels = np.stack([np.asarray(p) for p in pixels], axis=-1)
+        fmt = sample_fmt.value
+        if self.metadata.one_frame:
+            self._send_tile_one_frame(pixels, tile_x, tile_y, is_last, fmt)
+        else:
+            # deferred batch units must serialize BEFORE this tile
+            self._tb_drain_all()
+            self._send_tile_tiled(pixels, tile_x, tile_y, is_last, fmt)
+
+    def take_output(self) -> bytes:
+        """Drain every pending output byte (materializes the finalize
+        stream; use iter_output for bounded-memory draining)."""
+        if self._emit_iter is not None:
+            for chunk in self._emit_iter:
+                self._out.extend(chunk)
+            self._emit_iter = None
+        out = bytes(self._out)
+        self._out.clear()
+        self.stats.bytes_out += len(out)
+        return out
+
+    def iter_output(self, chunk_size: int = 1 << 22):
+        """Yield pending output in bounded chunks.  In streaming mode
+        the finalize emission reads spooled sections incrementally, so
+        host memory stays bounded even when the encoded image does not
+        fit in RAM."""
+        if self._out:
+            out = bytes(self._out)
+            self._out.clear()
+            self.stats.bytes_out += len(out)
+            yield out
+        if self._emit_iter is not None:
+            buf = bytearray()
+            for chunk in self._emit_iter:
+                buf.extend(chunk)
+                if len(buf) >= chunk_size:
+                    self.stats.bytes_out += len(buf)
+                    yield bytes(buf)
+                    buf.clear()
+            self._emit_iter = None
+            if buf:
+                self.stats.bytes_out += len(buf)
+                yield bytes(buf)
+
+    @property
+    def finished(self) -> bool:
+        return self._finished
+
+    def close(self) -> None:
+        """Drop spool-backed temp files immediately.  For ABANDONED
+        encodes: a drained `iter_output`/`take_output` already cleans
+        up, and weakref.finalize covers GC/interpreter exit.  Pending
+        undelivered output becomes unreadable after this."""
+        spool = getattr(self, "_lf_spool", None)
+        if spool is not None:
+            spool.close()
+        hf = getattr(self, "_hf", None)
+        if hf is not None and hasattr(hf, "close"):
+            hf.close()
+
+    def set_suggested_icc_profile(self, icc_data: Optional[bytes]) -> None:
+        """libhydrium.c:242-305 (one-frame mode only, before first tile)."""
+        if icc_data is None:
+            self._icc_payload = None
+            return
+        if not self.metadata.one_frame:
+            raise ValueError("one-frame mode required for ICC tagging")
+        if self._wrote_header:
+            raise RuntimeError("ICC must be set before the first tile")
+        self._icc_payload = headers.mangle_icc_profile(icc_data)
+
+    # -- common ---------------------------------------------------------
 
     def _dispatch(self, pixels, fmt: str, lfg, preset: int, hf,
                   lf_seg_vb: int = 0) -> _TorchDispatch:
@@ -199,27 +415,85 @@ class Encoder(_host.Encoder):
             self._codec, self._front, self.device, self.stats,
             fused=self.fused_front, lf_seg_vb=lf_seg_vb)
 
-    def _process_lfg(self, pixels, lfid: int, fmt: str) -> None:
-        lfg = self._lfgs[lfid]
-        self._sent.add(lfid)
-        self._geo.lfg_arrival.append(lfid)
-        preset = lfid // self._geo.lfg_per_preset
-        with self.stats.stage("pipeline+transfer"):
-            lf_q, lf_res = self._dispatch(pixels, fmt, lfg, preset,
-                                          self._hf).drain()
-        self._write_lf(lf_q, lf_res)
-        if self.streaming:
-            with self.stats.stage("ans_encode"):
-                self._hf.finish_lfg(preset)
+    def _image_header(self, bw: BitWriter) -> None:
+        headers.write_image_header(
+            bw, self.metadata.width, self.metadata.height,
+            self.metadata.level10, self._icc_payload)
+        self._wrote_header = True
+
+    def _tile_is_last(self, tile_x: int, tile_y: int, tile_w: int,
+                      tile_h: int, is_last: int) -> bool:
+        if is_last >= 0:
+            return bool(is_last)
+        return ((tile_x + 1) * tile_w >= self.metadata.width
+                and (tile_y + 1) * tile_h >= self.metadata.height)
 
     # -- tiled mode ------------------------------------------------------
     #
-    # send_tile and _tb_drain_all, the frame rendering (_render_tiled_frame,
-    # _emit_tiled_frame) and the per-tile render pool (_tb_submit_renders,
-    # _tb_pool) are the base class's.  Units are the base class's dicts:
-    # "chunk" (a stack of full-size tiles, dispatched and fetched when it
-    # is made, its tiles rendered on the pool) and "edge" (one clipped
-    # tile, dispatched when it is made, walked when it drains).
+    # Units in flight are dicts: "chunk" (a stack of full-size tiles,
+    # dispatched and fetched when it is made, its tiles rendered on the
+    # 4-worker pool) and "edge" (one clipped tile, dispatched when it is
+    # made, walked when it drains).  Frames leave in send order.
+
+    def _tile_geometry(self, tile_x: int, tile_y: int) -> LFGroupGeometry:
+        m = self.metadata
+        tw, th = m.tile_width, m.tile_height
+        if tile_x >= (m.width + tw - 1) // tw or \
+                tile_y >= (m.height + th - 1) // th:
+            raise ValueError("tile out of bounds")
+        return LFGroupGeometry(
+            x=tile_x, y=tile_y,
+            width=min(tw, m.width - tile_x * tw),
+            height=min(th, m.height - tile_y * th),
+            tile_count_x=1 << m.tile_size_shift_x,
+            tile_count_y=1 << m.tile_size_shift_y)
+
+    def _render_tiled_frame(self, lfg: LFGroupGeometry, last: bool,
+                            lf_q, lf_res, hf,
+                            include_header: bool) -> bytes:
+        """Serialize one tile-frame (header, LF sections, HF sections,
+        TOC) from an already-fed HF stream; returns the frame bytes.
+        Pure function of its arguments -- safe to run on a worker
+        thread (the per-frame ANS encode releases the GIL in C++)."""
+        m = self.metadata
+        geo = FrameGeometry(
+            image_width=m.width, image_height=m.height, one_frame=False,
+            lfg_count_x=1, lf_groups=[lfg], lfg_arrival=[0])
+        main = new_bitwriter()
+        if include_header:
+            # written WITHOUT touching self._wrote_header: this runs on
+            # render pool threads; the claim sites own the flag
+            headers.write_image_header(main, m.width, m.height, m.level10,
+                                       self._icc_payload)
+        write_frame_header(main, geo, last)
+        asm = _FrameAssembler(geo.num_frame_groups > 1)
+        with self.stats.stage("lf_sections"):
+            write_lf_global(asm.working)
+            asm.end_section()
+            write_lf_group(asm.working, lf_q, lf_res)
+            asm.end_section()
+        with self.stats.stage("ans_encode"):
+            hf.encode_group_sections()
+        hf.write_hf_global(asm.working, geo.num_frame_groups)
+        asm.end_section()
+        for gbw in hf.group_sections:
+            asm.working.append_writer(gbw)
+            asm.end_section()
+        asm.write_toc_sizes(main)
+        return bytes(main.finalize()) + bytes(asm.working.finalize())
+
+    def _emit_tiled_frame(self, lfg: LFGroupGeometry, last: bool,
+                          lf_q, lf_res, hf,
+                          include_header: Optional[bool] = None) -> None:
+        if include_header is None:
+            include_header = not self._wrote_header
+        if include_header:
+            self._wrote_header = True
+        data = self._render_tiled_frame(lfg, last, lf_q, lf_res, hf,
+                                        include_header)
+        self._out.extend(data)
+        if last:
+            self._finished = True
 
     def _send_tile_tiled(self, pixels, tile_x, tile_y, is_last, fmt) -> None:
         m = self.metadata
@@ -293,7 +567,7 @@ class Encoder(_host.Encoder):
                 self._tb_run, self._tb_run_fmt = run, fmt
         keep = 0 if contains_last else 2
         while len(self._tb_units) > keep:
-            self._tb_drain_unit(self._tb_units.pop(0), fmt)
+            self._tb_drain_unit(self._tb_units.pop(0))
 
     def _tb_chunk(self, part, fmt: str, k_stack: int) -> dict:
         """Stack the full-size tiles of `part` ((pixels, tx, ty, lfg)
@@ -321,7 +595,6 @@ class Encoder(_host.Encoder):
                 aux, words, bh, tw, geo, handle.lf_lut))
         unit = {"kind": "chunk", "px": px, "fmt": fmt,
                 "metas": [(tx, ty, lfg) for _p, tx, ty, lfg in part],
-                "tok_classes": handle.tok_classes,
                 "include_header": include_header, "result": None,
                 "futs": None}
         if parsed is None:
@@ -332,10 +605,10 @@ class Encoder(_host.Encoder):
         self._tb_submit_renders(unit)
         return unit
 
-    def _tb_drain_unit(self, unit, fmt: str) -> None:
+    def _tb_drain_unit(self, unit) -> None:
         """Emit one unit's frames (send order).  A chunk without a result
         re-encodes its tiles one by one under the sample format it was
-        sent with, unit["fmt"]; `fmt`, the current call's, is not used."""
+        sent with, unit["fmt"]."""
         m = self.metadata
         tw, th = m.tile_width, m.tile_height
         if self._finished:
@@ -364,6 +637,196 @@ class Encoder(_host.Encoder):
             self._out.extend(f.result())
             if last:
                 self._finished = True
+
+    def _tb_submit_renders(self, unit) -> None:
+        """Submit a fetched chunk unit's per-tile walk + ANS + frame
+        serialization to the 4-worker pool (the walker and ANS encoder
+        release the GIL in C++).  Results are collected strictly in send
+        order by _tb_drain_unit."""
+        m = self.metadata
+        tw, th = m.tile_width, m.tile_height
+        gpt = (th >> 8) * (tw >> 8)
+        parsed, lut = unit["result"]
+
+        def render(j, lfg, last, include_header):
+            g0, g1 = j * gpt, (j + 1) * gpt
+            lf0 = j * (th >> 3)
+            hf = HFStream(1)
+            with self.stats.stage("walk"):
+                # the walker's class modulus is the LUT's row count, which
+                # must equal the dispatch's tok_classes
+                hf.add_lfg_packed(parsed["tok_words"], parsed["res_words"],
+                                  lut, 0, (th >> 8, tw >> 8),
+                                  (th >> 3, tw >> 3),
+                                  parsed["tok_off"][g0:g1],
+                                  parsed["res_off"][g0:g1],
+                                  parsed["gs"][g0:g1])
+            return self._render_tiled_frame(
+                lfg, last, None, parsed["lf_res"][lf0:lf0 + (th >> 3)],
+                hf, include_header)
+
+        pool = self._tb_pool()
+        futs = []
+        for j, (tx, ty, lfg) in enumerate(unit["metas"]):
+            last = self._tile_is_last(tx, ty, tw, th, -1)
+            futs.append((pool.submit(render, j, lfg, last,
+                                     unit["include_header"] and j == 0),
+                         last))
+        unit["futs"] = futs
+
+    def _tb_pool(self) -> ThreadPoolExecutor:
+        if self._tb_pool_ is None:
+            self._tb_pool_ = ThreadPoolExecutor(
+                max_workers=4, thread_name_prefix="hyd-tile")
+        return self._tb_pool_
+
+    def _tb_drain_all(self) -> None:
+        if self._tb_run:
+            # dispatch the pending cross-call run first -- nothing may
+            # emit ahead of tiles already accepted (send order); the run
+            # flushes under ITS OWN sample format, not the new tile's
+            self._tb_flush_pending = True
+            try:
+                self.send_tile_batch(
+                    [], sample_fmt=SampleFormat(self._tb_run_fmt))
+            finally:
+                self._tb_flush_pending = False
+        while self._tb_units:
+            self._tb_drain_unit(self._tb_units.pop(0))
+
+    # -- one-frame mode -------------------------------------------------
+
+    def _send_tile_one_frame(self, pixels, tile_x, tile_y, is_last,
+                             fmt) -> None:
+        m = self.metadata
+        if tile_x >= m.lfg_count_x or tile_y >= m.lfg_count_y:
+            raise ValueError("tile out of bounds")
+        lfid = tile_y * m.lfg_count_x + tile_x
+        if lfid in self._sent:
+            raise ValueError("tile already sent")
+        last = self._tile_is_last(tile_x, tile_y, 2048, 2048, is_last)
+
+        if self._assembler is None and self._lf_spool is None:
+            if self.streaming:
+                geo = self._geo
+                counts = [0] * geo.num_presets
+                for _id in range(geo.lfg_per_frame):
+                    counts[_id // geo.lfg_per_preset] += 1
+                self._hf = StreamingHFStream(geo.num_presets, counts,
+                                             spool_dir=self.spool_dir)
+                # bounded output: LF sections spool next to HF sections;
+                # nothing accumulates in a RAM working writer
+                self._lf_spool = _SectionSpool(self.spool_dir)
+                bw = new_bitwriter()
+                write_lf_global(bw)
+                self._lf_spool.add_raw(bw.export_raw())
+            else:
+                self._assembler = _FrameAssembler(self._geo.toc_size > 1)
+                self._hf = HFStream(self._geo.num_presets)
+                write_lf_global(self._assembler.working)
+                self._assembler.end_section()
+
+        self.stats.pixels += self._lfgs[lfid].height * self._lfgs[lfid].width
+        self._process_lfg(pixels, lfid, fmt)
+
+        if last:
+            for missing in range(len(self._lfgs)):
+                if missing not in self._sent:
+                    lfg = self._lfgs[missing]
+                    zeros = np.zeros((lfg.height, lfg.width, 3),
+                                     dtype=np.uint8 if fmt == "uint8"
+                                     else np.uint16 if fmt == "uint16"
+                                     else np.float32)
+                    self._process_lfg(zeros, missing, fmt)
+            self._finalize_one_frame()
+
+    def _process_lfg(self, pixels, lfid: int, fmt: str) -> None:
+        lfg = self._lfgs[lfid]
+        self._sent.add(lfid)
+        self._geo.lfg_arrival.append(lfid)
+        preset = lfid // self._geo.lfg_per_preset
+        with self.stats.stage("pipeline+transfer"):
+            lf_q, lf_res = self._dispatch(pixels, fmt, lfg, preset,
+                                          self._hf).drain()
+        self._write_lf(lf_q, lf_res)
+        if self.streaming:
+            with self.stats.stage("ans_encode"):
+                self._hf.finish_lfg(preset)
+
+    def _write_lf(self, lf_q, lf_res) -> None:
+        with self.stats.stage("lf_sections"):
+            if self.streaming:
+                bw = new_bitwriter()
+                write_lf_group(bw, lf_q, lf_res)
+                self._lf_spool.add_raw(bw.export_raw())
+            else:
+                asm = self._assembler
+                write_lf_group(asm.working, lf_q, lf_res)
+                asm.end_section()
+
+    def _finalize_one_frame(self) -> None:
+        hf = self._hf
+        geo = self._geo
+        with self.stats.stage("ans_encode"):
+            hf.encode_group_sections()
+
+        if self.streaming:
+            # bounded-output finalize: compute section sizes (bytes stay
+            # spooled), write headers + TOC, then stream everything out
+            hfg = new_bitwriter()
+            hf.write_hf_global(hfg, geo.num_frame_groups)
+            hfg_raw = hfg.export_raw()
+            hf_items = list(hf.iter_section_meta())
+            spool = self._lf_spool
+            sizes = [spool.padded_size(i) for i in range(len(spool.items))]
+            sizes.append(len(hfg_raw[0]) + (1 if hfg_raw[2] else 0))
+            sizes.extend(n + (1 if tb else 0) for _, tb, n in hf_items)
+
+            main = new_bitwriter()
+            if not self._wrote_header:
+                self._image_header(main)
+            write_frame_header(main, geo, True)
+            main.zero_pad()
+            for s in sizes:
+                main.write_u32(TOC_TABLE, s)
+            main.zero_pad()
+
+            def emit():
+                yield main.finalize()
+                for i in range(len(spool.items)):
+                    yield from spool.emit(i)
+                yield hfg_raw[0]
+                if hfg_raw[2]:
+                    yield bytes([hfg_raw[1] & 0xFF])
+                for data, tail_val, tail_bits in hf.iter_sections():
+                    yield data
+                    if tail_bits:
+                        yield bytes([tail_val & 0xFF])
+                # everything spooled has been emitted: drop the temp
+                # dirs now instead of waiting for GC (their
+                # weakref.finalize remains the crash/abandon backstop)
+                spool.close()
+                hf.close()
+
+            self._emit_iter = emit()
+            self._finished = True
+            return
+
+        asm = self._assembler
+        hf.write_hf_global(asm.working, geo.num_frame_groups)
+        asm.end_section()
+        for gbw in hf.group_sections:
+            asm.working.append_writer(gbw)
+            asm.end_section()
+
+        main = new_bitwriter()
+        if not self._wrote_header:
+            self._image_header(main)
+        write_frame_header(main, geo, True)
+        asm.write_toc_sizes(main)
+        self._out.extend(main.finalize())
+        self._out.extend(asm.working.finalize())
+        self._finished = True
 
 
 def encode_image(image: np.ndarray, tile_size_shift: int = -1,

@@ -100,7 +100,7 @@ def lib() -> ctypes.CDLL:
         L = ctypes.CDLL(str(library_path()))
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         L.hyd_transport_prep.restype = I
-        L.hyd_transport_prep.argtypes = [P] * 7 + [I, LL] + [P] * 5
+        L.hyd_transport_prep.argtypes = [P] * 7 + [I, LL, I] + [P] * 7
         L.hyd_chunk_pack.restype = I
         L.hyd_chunk_pack.argtypes = [P, P, LL, I, I, P, P, P]
         L.hyd_frontend.restype = I

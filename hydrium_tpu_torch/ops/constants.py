@@ -1,10 +1,10 @@
 """Payload-format and front constants of the packed encode path.
 
-Port-owned copies of the constants in hydrium_tpu/ops/pipeline.py,
-which cannot be imported here (it imports jax).  They are format
-semantics shared with the host walker (cpp/serializer.cc) and
-hydrium_tpu.encoder._parse_packed, so tests/test_torch_front.py pins
-every one of them equal to the JAX package's value.
+Port-owned copies of the constants in hydrium_tpu/ops/pipeline.py.
+They are format semantics shared with the host walker
+(csrc/host/serializer.cc) and host._parse_packed, so
+tests/test_torch_front.py pins every one of them equal to the JAX
+package's value.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import os
 
 import numpy as np
 
-from hydrium_tpu.ops import tables
+from . import tables
 
 # emission channel order Y, X, B -> storage index (internal.h order)
 EMIT_TO_STORE = np.array([1, 0, 2], dtype=np.int32)

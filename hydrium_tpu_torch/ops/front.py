@@ -26,10 +26,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hydrium_tpu.ops import tables
-
 from . import constants as C
 from . import frontend as _frontend
+from . import tables
 
 _MASK32 = 0xFFFFFFFF
 

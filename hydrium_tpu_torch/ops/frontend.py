@@ -30,11 +30,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hydrium_tpu.ops import tables
-
 from . import _kernels
 from . import constants as C
 from . import front as _front
+from . import tables
 
 _SCALE = {"uint8": float(np.float32(1.0 / 255.0)),
           "uint16": float(np.float32(1.0 / 65535.0)),

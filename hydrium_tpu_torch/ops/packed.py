@@ -2,7 +2,7 @@
 hydrium_tpu/ops/pipeline.py encode_lfg_packed.
 
 Layout (u32 words; the layout comment in pipeline.py is the contract,
-shared with hydrium_tpu.encoder._parse_packed and cpp/serializer.cc):
+shared with host._parse_packed and csrc/host/serializer.cc):
 
     aux   [0] ok word (1 valid, 2 retry with wide_residues, 0 fall back
               to the unpacked path)  [1] token bits  [2] residue bits

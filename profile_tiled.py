@@ -107,9 +107,9 @@ def main() -> int:
         detail.append(f"== {key}\n" + ka.table(
             sort_by="self_device_time_total", row_limit=15))
 
-    from hydrium_tpu import encoder as host_encoder
-    from hydrium_tpu.jxl.tokcode import TokenCodec
     from hydrium_tpu_torch import encoder as torch_encoder
+    from hydrium_tpu_torch import host as payload_host
+    from hydrium_tpu_torch.jxl.tokcode import TokenCodec
 
     host = {}
     D = torch_encoder._TorchDispatch
@@ -118,7 +118,7 @@ def main() -> int:
             _timed(D, "fetch", host, "fetch"),
             _timed(D, "drain", host, "edge_drain"),
             _timed(TokenCodec, "tables", host, "codec_tables"),
-            _timed(host_encoder, "_parse_packed", host, "parse_packed")]
+            _timed(payload_host, "_parse_packed", host, "parse_packed")]
     st = H.EncodeStats()
     t0 = time.perf_counter()
     CS.encode_tiled(img, True, st)

@@ -11,8 +11,8 @@ import pytest
 import torch
 
 import hydrium_tpu_torch
-from hydrium_tpu.jxl.tokcode import TokenCodec
-from hydrium_tpu.utils.stats import EncodeStats
+from hydrium_tpu_torch import EncodeStats
+from hydrium_tpu_torch.jxl.tokcode import TokenCodec
 from hydrium_tpu_torch.ops import bitpack as TB
 from hydrium_tpu_torch.ops import constants as C
 from hydrium_tpu_torch.ops import front as TF
@@ -34,8 +34,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _transport_inputs(rng, N, dev):
-    tokens = rng.integers(0, 80, (N, 64)).astype(np.int16)  # some >= 64
+def _transport_inputs(rng, N, dev, max_tok=80):
+    """Stage inputs; by default some valid tokens are >= 64."""
+    tokens = rng.integers(0, max_tok, (N, 64)).astype(np.int16)
     clusters = rng.integers(0, 27, (N, 64)).astype(np.uint8)
     valid_len = rng.integers(0, 65, N).astype(np.int32)
     valid_len[:7] = [0, 1, 64, 64, 0, 33, 1]
@@ -48,16 +49,37 @@ def _transport_inputs(rng, N, dev):
             t(lens.astype(np.int32)), t(codes.astype(np.int32)))
 
 
-@pytest.mark.parametrize("tok_classes", [9, 3, 1])
-def test_transport_prep_kernel_equals_plain(cuda, tok_classes):
-    args = _transport_inputs(np.random.default_rng(tok_classes), 4096, cuda)
+def _assert_transport_equal(args, tok_classes, hs):
+    """The kernel's six outputs equal the plain twin's, in one launch."""
     before = TT.transport_prep.launches
-    got = TT.transport_prep(*args, tok_classes=tok_classes)
-    want = TT.transport_prep_plain(*args, tok_classes=tok_classes)
+    got = TT.transport_prep(*args, tok_classes=tok_classes, hs=hs)
+    want = TT.transport_prep_plain(*args, tok_classes=tok_classes, hs=hs)
     torch.cuda.synchronize()
     assert TT.transport_prep.launches == before + 1
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("tok_classes", [9, 3, 1])
+def test_transport_prep_kernel_equals_plain(cuda, tok_classes):
+    args = _transport_inputs(np.random.default_rng(tok_classes), 4096, cuda)
+    _assert_transport_equal(args, tok_classes, C.HIST_SAMPLE_STRIDE)
+
+
+@pytest.mark.parametrize("case", ["rows_not_multiple_of_hs",
+                                  "one_valid_token_ge_64"])
+def test_transport_prep_kernel_edge_cases(cuda, case):
+    """N = 3073 rows (hs 1, every row sampled) with all tokens < 64; and
+    one valid token of 64 among tokens < 64 at N = 3072."""
+    rng = np.random.default_rng(11)
+    if case == "rows_not_multiple_of_hs":
+        args = _transport_inputs(rng, 3073, cuda, max_tok=64)
+        assert bool(_assert_transport_equal(args, 9, 1)[5])
+    else:
+        args = _transport_inputs(rng, 3072, cuda, max_tok=64)
+        args[0][2, 5] = 64           # row 2 has valid_len 64
+        assert not bool(_assert_transport_equal(args, 9, 4)[5])
 
 
 def _fields(rng, F, cap, p, n_full, dev):
@@ -120,7 +142,7 @@ def test_wrappers_reject_bad_inputs(cuda):
     args = list(_transport_inputs(np.random.default_rng(2), 64, cuda))
     args[0] = args[0].to(torch.int32)
     with pytest.raises(ValueError):
-        TT.transport_prep(*args, tok_classes=9)
+        TT.transport_prep(*args, tok_classes=9, hs=4)
     px = torch.zeros((300, 256, 3), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):        # upload taller than the buffer
         TFE.frontend_lfg(px, 300, 256, buf_h=256, buf_w=256,

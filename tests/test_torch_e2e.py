@@ -10,6 +10,7 @@ the host walk, ANS and framing -- must then give the same bytes.
 Unpatched, libjxl decodes the port's output at PSNR >= JAX's - 0.05 dB.
 """
 
+import fcntl
 import os
 import subprocess
 import sys
@@ -22,18 +23,48 @@ import jax.numpy as jnp
 
 import hydrium_tpu_torch
 from hydrium_tpu import encode_image as jax_encode_image
-from hydrium_tpu.config import ImageMetadata
+from hydrium_tpu.jxl import native as jax_native
 from hydrium_tpu.ops import pipeline as P
 from hydrium_tpu.ops import tables
 from hydrium_tpu.utils import djxl
-from hydrium_tpu.utils.stats import EncodeStats
-from hydrium_tpu_torch.host import ensure_native
+from hydrium_tpu_torch import EncodeStats, ImageMetadata
 from hydrium_tpu_torch.ops import front as TF
 from hydrium_tpu_torch.ops import packed as TP
 from test_e2e import make_image
 
-# every test worker builds the native plane, or waits for it, here
-ensure_native()
+
+def jax_native_ready() -> bool:
+    """Build the JAX package's native plane (build/libhydtpu.so) under a
+    file lock and forget a load error cached by a lost race.  Its loader
+    builds without a lock, so test workers that start together on a
+    checkout without build/ race, and a loser's cached error turns the
+    plane off for its whole process: its backend="jax" encodes, which
+    these tests hold the port to, would then take another path."""
+    if jax_native._lib is not None:
+        return True
+    build_dir = os.path.dirname(jax_native._SO_PATH)
+    try:
+        os.makedirs(build_dir, exist_ok=True)
+        with open(os.path.join(build_dir, ".libhydtpu.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            for attempt in range(2):
+                # the second attempt rebuilds over a library that a build
+                # racing outside the lock left truncated
+                if (attempt or not os.path.exists(jax_native._SO_PATH)
+                        or os.path.getmtime(jax_native._SO_PATH)
+                        < os.path.getmtime(jax_native._SRC_PATH)):
+                    jax_native._build()
+                jax_native._load_error = None
+                if jax_native.available():
+                    return True
+    except (OSError, subprocess.CalledProcessError):
+        pass    # no g++ or an unwritable build/: the tests say so
+    return False
+
+
+# every test worker builds the JAX package's native plane, or waits for
+# it, here (the port builds its own under a lock of its own)
+jax_native_ready()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _VIEWS = {"tokens": np.int16, "residues": np.int32, "lf_res": np.int32}

@@ -1,0 +1,116 @@
+"""The port stands alone: no file of hydrium_tpu_torch, nor chip_smoke.py
+or the profile_*.py scripts, imports the JAX package or jax; a CPU encode in
+both modes loads neither; and the constants it copied equal the JAX
+package's."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from hydrium_tpu.jxl import tokcode as jax_tokcode
+from hydrium_tpu.ops import tables as jax_tables
+from hydrium_tpu_torch.jxl import tokcode
+from hydrium_tpu_torch.ops import tables
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("hydrium_tpu", "jax", "jaxlib")
+
+
+def _port_files():
+    files = sorted((REPO / "hydrium_tpu_torch").rglob("*.py"))
+    return files + [REPO / name for name in ("chip_smoke.py",
+                                             "profile_tiled.py",
+                                             "profile_transport.py")]
+
+
+def _imported_roots(path: Path):
+    """(line, top-level package) of every import in the file, at any
+    depth (imports inside functions included); relative imports stay
+    inside their package and are skipped."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def test_no_file_of_the_port_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20
+    bad = [f"{p.relative_to(REPO)}:{line} imports {root}"
+           for p in files for line, root in _imported_roots(p)
+           if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_scan_sees_imports_inside_functions(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import os\n"
+                   "def f():\n"
+                   "    from hydrium_tpu.utils import djxl\n"
+                   "    import jax.numpy\n"
+                   "from . import x\n"
+                   "import hydrium_tpu_torch\n")
+    assert sorted(_imported_roots(src)) == [
+        (1, "os"), (3, "hydrium_tpu"), (4, "jax"), (6, "hydrium_tpu_torch")]
+
+
+def test_cpu_encode_loads_neither_jax_nor_the_jax_package():
+    code = ("import sys, numpy as np, hydrium_tpu_torch as H\n"
+            "img = np.random.default_rng(0).integers(0, 256, (300, 520, 3),"
+            " dtype=np.uint8)\n"
+            "for shift in (-1, 0):\n"
+            "    b = H.encode_image(img, shift, device='cpu')\n"
+            "    assert b[:2] == b'\\xff\\x0a', b[:2]\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('hydrium_tpu', 'jax', "
+            "'jaxlib'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_tables_equal_the_jax_package():
+    names = [n for n in dir(tables)
+             if n.isupper() and isinstance(getattr(tables, n),
+                                           (np.ndarray, int))]
+    assert len(names) >= 10
+    for n in names:
+        np.testing.assert_array_equal(getattr(tables, n),
+                                      getattr(jax_tables, n), err_msg=n)
+        assert np.asarray(getattr(tables, n)).dtype == \
+            np.asarray(getattr(jax_tables, n)).dtype, n
+
+
+@pytest.mark.parametrize("num_presets", [1, 2, 28, 29, 85, 86, 128, 256])
+def test_hf_cluster_maps_equal_the_jax_package(num_presets):
+    got = tables.hf_cluster_map(num_presets)
+    want = jax_tables.hf_cluster_map(num_presets)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_token_codec_equals_the_jax_package():
+    """The generic prior's tables, and the tables after one histogram
+    update: lengths, codewords and decode LUTs."""
+    mine, ref = tokcode.TokenCodec(), jax_tokcode.TokenCodec()
+    for k in ("ALPHABET", "LF_CLASS", "NROWS", "MAX_LEN", "LUT_BITS"):
+        assert getattr(tokcode, k) == getattr(jax_tokcode, k), k
+    hist = np.random.default_rng(5).integers(0, 5000, (10, 64))
+    for step in range(2):
+        for a, b in zip(mine.tables(), ref.tables()):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b, err_msg=f"step {step}")
+        mine.update(hist)
+        ref.update(hist)

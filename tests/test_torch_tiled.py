@@ -13,16 +13,13 @@ import pytest
 
 import hydrium_tpu_torch
 from hydrium_tpu import encode_image as jax_encode_image
-from hydrium_tpu.config import ImageMetadata, SampleFormat
 from hydrium_tpu.utils import djxl
-from hydrium_tpu.utils.stats import EncodeStats
-from hydrium_tpu_torch.host import ensure_native
+from hydrium_tpu_torch import EncodeStats, ImageMetadata, SampleFormat
 from hydrium_tpu_torch.ops import packed as TP
 from test_e2e import make_image
+# importing test_torch_e2e builds the JAX package's native plane under
+# its lock (jax_native_ready)
 from test_torch_e2e import _forced_ok, jax_front  # noqa: F401 (fixture)
-
-# every test worker builds the native plane, or waits for it, here
-ensure_native()
 
 
 def _tiles(img, th, tw, rows=None):
