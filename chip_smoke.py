@@ -11,24 +11,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
    stage) and chunk pack at one 2048x2048 LF group, one stacked tiled
    chunk and one edge tile, exactly equal, and transport prep also at a
    row count that HS does not divide and with one valid token >= 64;
-   the fused front at one LF group (G = 64), one stacked tiled chunk
-   (G = 16, u8 sRGB and f32 linear) and two edge tiles (G = 1, true
-   extent inside a smaller upload), within a flip bound.  For each case:
-   the kernel's device time (torch.profiler, median of 20), the time of
-   one call between CUDA events with its host work (median of 20), the
-   plain twin's, and the bound (bytes over 3.35 TB/s or float32
-   operations over 67 TFLOP/s, whichever is larger);
+   the fused front's two epilogues at one LF group (G = 64), one
+   stacked tiled chunk (G = 16, u8 sRGB and f32 linear) and two edge
+   tiles (G = 1, true extent inside a smaller upload): q/dc within a
+   flip bound of its plain twin; the tokens epilogue exactly equal to
+   the tokenizer run on the q/dc epilogue's q, and its rows that differ
+   from its own plain twin within the flip bound; and, at the edge
+   tile's shape, f32 samples that saturate q, where the tokens epilogue
+   must equal the tokenizer on q with 16-bit tokens (>= 2^15) present.
+   For each case: the kernel's device time (torch.profiler, median of
+   20), the time of one call between CUDA events with its host work
+   (median of 20), the plain twin's, and the bound (bytes over 3.35
+   TB/s or float32 operations, counted once from the kernel's SASS,
+   over 67 TFLOP/s, whichever is larger);
 4. one-frame mode: hydrium_tpu_torch.encode_image on a 3840x2160 u8
    image (noise + sinusoid, from a seed), one frame of four LF groups.
    Checks: all four LF groups packed, no fallback, each kernel launched
    exactly as often as the dispatches need, the JPEG XL signature, a
-   byte-identical second encode, the same with the fused front, the
+   byte-identical second encode, the same with the fused front (the
+   tokens epilogue once per dispatch, the q/dc epilogue never), the
    card's front integers against the port's CPU front on one 2048^2 LF
    group (flip rate <= 1e-4), and, where libjxl loads, decode PSNR;
 5. tiled mode: the same image in 256^2 tiles, sent one row at a time
-   through Encoder.send_tile_batch with the fused front.  Checks: every
-   stacked chunk and edge tile packed, no fallback, each kernel launched
-   exactly as often as the dispatches need, the signature, a
+   through Encoder.send_tile_batch with the fused front (the main
+   path).  Checks: every stacked chunk and edge tile packed, no
+   fallback, each kernel launched exactly as often as the dispatches
+   need, the signature, a
    byte-identical second encode, decode PSNR where libjxl loads; also
    the warm time and launches with the unfused front.
 Each encode path's launch counts are zeroed just before it and read
@@ -293,50 +301,159 @@ def check_kernels(dev):
              "shape": "LF group, tokens + residues fast", "by_case": pk}]
 
 
-def _frontend_case(name, px, h, w, buf, linear, kind):
-    """The frontend kernel vs its plain twin on the card for one buffer."""
+# float32 operations per pixel of the frontend kernel's prologue (sample
+# scaling or the u8 table, XYB with three cube roots, the DCT, the
+# quantization), per sample type: the float32 instructions of its SASS
+# (an FFMA counts two) over the 8 pixels a thread takes per strip, as
+# `python3 profile_front.py --sass` counts them on the built library
+# (sm_90a, -O3): 1487, 1682 and 1658 over 8.  A static count, so it also
+# holds the unaligned load path; the epilogues do integer work only.
+FRONT_F32_OPS_PER_PIXEL = {"uint8": 1487 / 8, "uint16": 1682 / 8,
+                           "float32": 1658 / 8}
+
+
+def _frontend_bounds(px, G: int, sample_kind: str) -> dict:
+    """Bounds of the two epilogues over one buffer of G groups.  Bytes:
+    the upload read once; q (i32 [N, 64]) or the five streams (8 bytes
+    a slot and valid_len) written once, with the DC grid; the tokens
+    epilogue also reads the presets.  Operations: the prologue's float32
+    operations over every pixel of the buffer."""
+    N = G * 3072
+    px_bytes = px.numel() * px.element_size()
+    dc_bytes = 4 * G * 1024 * 3
+    ops = FRONT_F32_OPS_PER_PIXEL[sample_kind] * G * 65536
+    return {"q": _bound_ms(px_bytes + 4 * N * 64 + dc_bytes, ops),
+            "tokens": _bound_ms(px_bytes + 8 * N * 64 + 4 * N + dc_bytes
+                                + 4 * G, ops)}
+
+
+STREAMS = ("tokens", "clusters", "residues", "residue_bits", "valid_len")
+
+
+def _tokens_equal(name, toks, want, lf) -> int:
+    """The tokens epilogue's five streams and lf_q against the tokenizer
+    run on the q/dc epilogue's q (want) and that epilogue's lf: every
+    value equal.  Returns the largest difference of the stored values
+    (so 0)."""
     import torch
 
-    from hydrium_tpu_torch.ops.frontend import (frontend_lfg,
-                                                frontend_lfg_plain)
+    if not torch.equal(toks["lf_q"], lf):
+        raise AssertionError(f"frontend_tokens {name} lf_q differs from the "
+                             "q/dc epilogue's")
+    for k in STREAMS:
+        if toks[k].dtype != want[k].dtype or not torch.equal(toks[k],
+                                                             want[k]):
+            raise AssertionError(f"frontend_tokens {name} {k}: "
+                                 f"{int((toks[k] != want[k]).sum())} values "
+                                 "differ from the tokenizer on q")
+    return max(int((toks[k].long() - want[k].long()).abs().max().item())
+               for k in STREAMS)
+
+
+def _frontend_saturating_case(px, h, w, buf) -> dict:
+    """The tokens epilogue on f32 linear samples that make q saturate
+    (INT32_MAX) and the tokenizer see values >= 2^31: exactly equal to
+    the tokenizer run on the q/dc epilogue's q, with 16-bit tokens
+    (>= 2^15, no residue) present.  Not held against the plain twin:
+    cube roots of +-1e30 summed in another order move q by more than a
+    flip."""
+    import torch
+
+    from hydrium_tpu_torch.ops.front import tokenize_lfg
+    from hydrium_tpu_torch.ops.frontend import (_tables, frontend_lfg,
+                                                frontend_tokens)
+
+    kw = dict(buf_h=buf[0], buf_w=buf[1], linear_light=True,
+              sample_kind="float32")
+    G = (buf[0] >> 8) * (buf[1] >> 8)
+    presets = torch.arange(G, dtype=torch.int32, device=px.device) % 3
+    q, lf = frontend_lfg(px, h, w, **kw)
+    toks = frontend_tokens(px, h, w, presets, clusters_per_preset=9, **kw)
+    want = tokenize_lfg(q, presets, h, w, buf_h=buf[0], buf_w=buf[1],
+                        clusters_per_preset=9, tabs=_tables(px.device))
+    torch.cuda.synchronize()
+    err = _tokens_equal("saturating", toks, want, lf)
+    n_max = int((q == torch.iinfo(torch.int32).max).sum().item())
+    n_wide = int((toks["tokens"] < 0).sum().item())
+    assert n_max > 0 and n_wide > 0, (n_max, n_wide)
+    print(f"frontend tokens edge_f32_saturating G={G}: equal to the "
+          f"tokenizer on q; {n_max} q at INT32_MAX, {n_wide} tokens >= 2^15",
+          flush=True)
+    return {"max_abs_err": err, "q_at_int32_max": n_max,
+            "tokens_ge_2_15": n_wide}
+
+
+def _frontend_case(name, px, h, w, buf, linear, kind):
+    """Both epilogues of the frontend kernel on one buffer: q/dc against
+    its plain twin within the flip bound; tokens exactly equal to the
+    tokenizer (front.tokenize_lfg) run on the q/dc epilogue's q, and by
+    rows against its own plain twin.  Returns the two records."""
+    import torch
+
+    from hydrium_tpu_torch.ops.front import tokenize_lfg
+    from hydrium_tpu_torch.ops.frontend import (_tables, frontend_lfg,
+                                                frontend_lfg_plain,
+                                                frontend_tokens,
+                                                frontend_tokens_plain)
 
     kw = dict(buf_h=buf[0], buf_w=buf[1], linear_light=linear,
               sample_kind=kind)
+    G = (buf[0] >> 8) * (buf[1] >> 8)
+    presets = torch.arange(G, dtype=torch.int32, device=px.device) % 3
+    tkw = dict(kw, clusters_per_preset=9)
     q, lf = frontend_lfg(px, h, w, **kw)
     pq, plf = frontend_lfg_plain(px, h, w, **kw)
+    toks = frontend_tokens(px, h, w, presets, **tkw)
+    want = tokenize_lfg(q, presets, h, w, buf_h=buf[0], buf_w=buf[1],
+                        clusters_per_preset=9, tabs=_tables(px.device))
+    plain = frontend_tokens_plain(px, h, w, presets, **tkw)
     torch.cuda.synchronize()
     flips = int((q != pq).sum().item()) + int((lf != plf).sum().item())
     total = q.numel() + lf.numel()
     dq = int((q - pq).abs().max().item())
     dlf = int((lf - plf).abs().max().item())
-    run = lambda: frontend_lfg(px, h, w, **kw)
-    ms = _time_ms(run)
-    device_ms = _device_ms(run, "frontend_kernel")
-    plain_ms = _time_ms(lambda: frontend_lfg_plain(px, h, w, **kw))
-    G = (buf[0] >> 8) * (buf[1] >> 8)
-    # bytes: the upload read once, q and the DC grid written once;
-    # operations: ~145 float32 operations per pixel of the buffer (XYB
-    # ~40, two 8-tap DCT passes ~32 per coefficient and channel, the
-    # quantization ~3)
-    bound, by = _bound_ms(px.numel() * px.element_size()
-                          + 4 * (q.numel() + lf.numel()), 145 * G * 65536)
-    print(f"frontend {name} G={G}: {flips} flips of {total} "
-          f"({flips / total:.2e}, bound {FRONT_FLIP_TOL:g}), max |dq| {dq}, "
-          f"max |ddc| {dlf}; device {device_ms:.4f} ms, per call host "
-          f"included {ms:.4f} ms, bound {bound:.4f} ms "
-          f"({bound / device_ms:.0%}), plain {plain_ms:.4f} ms", flush=True)
     assert flips <= FRONT_FLIP_TOL * total, (name, flips, total)
     assert dq <= 2 and dlf <= 1, (name, dq, dlf)
-    return {"flips": flips, "values": total, "max_abs_err": max(dq, dlf),
-            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by}
+    tok_err = _tokens_equal(name, toks, want, lf)
+    rows = torch.zeros_like(toks["valid_len"], dtype=torch.bool)
+    for k in STREAMS:
+        d = toks[k] != plain[k]
+        rows |= d if d.dim() == 1 else d.any(dim=1)
+    rows = int(rows.sum().item())
+    assert rows <= FRONT_FLIP_TOL * q.numel(), (name, rows)
+    bounds = _frontend_bounds(px, G, kind)
+    recs = {}
+    for ep, run, plain_run in (
+            ("q", lambda: frontend_lfg(px, h, w, **kw),
+             lambda: frontend_lfg_plain(px, h, w, **kw)),
+            ("tokens", lambda: frontend_tokens(px, h, w, presets, **tkw),
+             lambda: frontend_tokens_plain(px, h, w, presets, **tkw))):
+        rec = recs[ep] = {
+            "ms": _time_ms(run), "device_ms": _device_ms(run,
+                                                         "frontend_kernel"),
+            "plain_ms": _time_ms(plain_run)}
+        rec["bound_ms"], rec["bound_by"] = bounds[ep]
+        print(f"frontend {ep} {name} G={G}: device {rec['device_ms']:.4f} "
+              f"ms, per call host included {rec['ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+              f"({rec['bound_ms'] / rec['device_ms']:.0%}), plain "
+              f"{rec['plain_ms']:.4f} ms", flush=True)
+    recs["q"].update(flips=flips, values=total, max_abs_err=max(dq, dlf))
+    recs["tokens"].update(rows_vs_plain=rows, rows=q.shape[0],
+                          max_abs_err=tok_err)
+    print(f"frontend {name} G={G}: q/dc {flips} flips of {total} "
+          f"({flips / total:.2e}, bound {FRONT_FLIP_TOL:g}), max |dq| {dq}, "
+          f"max |ddc| {dlf}; tokens equal the tokenizer on q, {rows} of "
+          f"{q.shape[0]} rows differ from the plain twin", flush=True)
+    return recs
 
 
 def check_frontend(img: np.ndarray, dev):
-    """Phase 3, fused front: one 2048^2 LF group (G = 64), one stacked
-    chunk of 16 tiles (G = 16, u8 sRGB and f32 linear light), and edge
-    tiles (G = 1) whose true extent is smaller than the upload, which is
-    smaller than the buffer: the kernel's own pad and mask."""
+    """Phase 3, fused front, both epilogues: one 2048^2 LF group
+    (G = 64), one stacked chunk of 16 tiles (G = 16, u8 sRGB and f32
+    linear light), and edge tiles (G = 1) whose true extent is smaller
+    than the upload, which is smaller than the buffer: the kernel's own
+    pad and mask."""
     import torch
 
     lfg = torch.as_tensor(np.ascontiguousarray(img[:2048, :2048]),
@@ -353,37 +470,53 @@ def check_frontend(img: np.ndarray, dev):
     # true extent that the kernel must mask
     narrow = np.full((128, 224, 3), 255, np.uint8)
     narrow[:112, :200] = img[2048:2160, :200]
-    cases = {
-        "edge_u8": _frontend_case(
-            "edge_u8", torch.as_tensor(edge, device=dev), 112, TILE,
-            (TILE, TILE), False, "uint8"),
-        "edge_narrow_u8": _frontend_case(
-            "edge_narrow_u8", torch.as_tensor(narrow, device=dev), 112, 200,
-            (TILE, TILE), False, "uint8"),
-        "lfg_u8": _frontend_case("lfg_u8", lfg, 2048, 2048, (2048, 2048),
-                                 False, "uint8"),
-        "chunk_u8": _frontend_case(
-            "chunk_u8", torch.as_tensor(stack, device=dev), 4096, TILE,
-            (4096, TILE), False, "uint8"),
-        "chunk_f32_linear": _frontend_case(
-            "chunk_f32_linear", torch.as_tensor(stack_f32, device=dev),
-            4096, TILE, (4096, TILE), True, "float32"),
-    }
-    top = cases["lfg_u8"]
-    return {"name": "frontend_groups", "route": "cuda",
-            "source": "hydrium_tpu_torch/csrc/frontend.cu",
-            "replaces": "hydrium_tpu/ops/pallas/frontend.py:132",
-            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-            "ms": top["ms"], "device_ms": top["device_ms"],
-            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
-            "bound_by": top["bound_by"], "library_ms": None,
-            "flips": sum(c["flips"] for c in cases.values()),
-            "values": sum(c["values"] for c in cases.values()),
-            "by_case": cases,
-            "shape": "lfg_u8: 2048x2048 (G=64); chunk_u8: 4096x256 (G=16); "
-                     "chunk_f32_linear: 4096x256; edge_u8: 112x256 in "
-                     "128x256 (G=1); edge_narrow_u8: 112x200 in 128x224 "
-                     "(G=1)"}
+    t = lambda a: torch.as_tensor(a, device=dev)
+    # the edge tile's shape in f32 linear light, a fifth of the samples
+    # +-1e30 or +-1e25
+    rng = np.random.default_rng(112)
+    huge = np.zeros((128, TILE, 3), np.float32)
+    huge[:112] = rng.random((112, TILE, 3))
+    big = np.zeros(huge.shape, bool)
+    big[:112] = rng.random((112, TILE, 3)) < 0.2
+    huge[big] = rng.choice(np.float32([1e30, -1e30, 1e25, -1e25]),
+                           int(big.sum()))
+    saturating = _frontend_saturating_case(t(huge), 112, TILE, (TILE, TILE))
+    cases = {name: _frontend_case(name, *args) for name, args in (
+        ("edge_u8", (t(edge), 112, TILE, (TILE, TILE), False, "uint8")),
+        ("edge_narrow_u8", (t(narrow), 112, 200, (TILE, TILE), False,
+                            "uint8")),
+        ("lfg_u8", (lfg, 2048, 2048, (2048, 2048), False, "uint8")),
+        ("chunk_u8", (t(stack), 4096, TILE, (4096, TILE), False, "uint8")),
+        ("chunk_f32_linear", (t(stack_f32), 4096, TILE, (4096, TILE), True,
+                              "float32")))}
+    shape = ("lfg_u8: 2048x2048 (G=64); chunk_u8: 4096x256 (G=16); "
+             "chunk_f32_linear: 4096x256; edge_u8: 112x256 in 128x256 "
+             "(G=1); edge_narrow_u8: 112x200 in 128x224 (G=1)")
+    out = []
+    for name, ep in (("frontend_groups", "q"), ("frontend_tokens", "tokens")):
+        by_case = {k: c[ep] for k, c in cases.items()}
+        top = by_case["lfg_u8"]
+        rec = {"name": name, "route": "cuda",
+               "source": "hydrium_tpu_torch/csrc/frontend.cu",
+               "replaces": "hydrium_tpu/ops/pallas/frontend.py:132",
+               "epilogue": ep,
+               "max_abs_err": max(c["max_abs_err"] for c in by_case.values()),
+               "ms": top["ms"], "device_ms": top["device_ms"],
+               "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+               "bound_by": top["bound_by"], "library_ms": None,
+               "f32_ops_per_pixel": FRONT_F32_OPS_PER_PIXEL,
+               "by_case": by_case, "shape": shape}
+        if ep == "q":
+            rec["flips"] = sum(c["flips"] for c in by_case.values())
+            rec["values"] = sum(c["values"] for c in by_case.values())
+        else:
+            rec["rows_vs_plain"] = sum(c["rows_vs_plain"]
+                                       for c in by_case.values())
+            rec["saturating"] = saturating
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     saturating["max_abs_err"])
+        out.append(rec)
+    return out
 
 
 def encode_tiled(img: np.ndarray, fused: bool, stats) -> bytes:
@@ -452,7 +585,8 @@ def main() -> int:
     from hydrium_tpu_torch import EncodeStats
     from hydrium_tpu_torch.ops import _kernels
     from hydrium_tpu_torch.ops.bitpack import pack_chunks
-    from hydrium_tpu_torch.ops.frontend import frontend_groups
+    from hydrium_tpu_torch.ops.frontend import (frontend_groups,
+                                                frontend_tokens)
     from hydrium_tpu_torch.ops.transport import transport_prep
 
     smi = subprocess.run(
@@ -473,17 +607,19 @@ def main() -> int:
     # phase 3: kernels vs plain twins
     img = make_4k()
     results = check_kernels(dev)
-    results.append(check_frontend(img, dev))
+    results.extend(check_frontend(img, dev))
 
     def zero_counts():
         transport_prep.launches = 0
         pack_chunks.launches = 0
         frontend_groups.launches = 0
+        frontend_tokens.launches = 0
 
     def read_counts():
         return {"transport_prep": transport_prep.launches,
                 "chunk_pack": pack_chunks.launches,
-                "frontend_groups": frontend_groups.launches}
+                "frontend_groups": frontend_groups.launches,
+                "frontend_tokens": frontend_tokens.launches}
 
     # phase 4: one-frame mode
     zero_counts()
@@ -501,7 +637,7 @@ def main() -> int:
     dispatches = c["lfg_packed"] + c.get("wide_retries", 0)
     assert launches["transport_prep"] == dispatches, launches
     assert launches["chunk_pack"] == 2 * dispatches, launches
-    assert launches["frontend_groups"] == 0, launches
+    assert launches["frontend_groups"] == launches["frontend_tokens"] == 0
     assert data[:2] == b"\xff\x0a", data[:4].hex()
 
     warm_stats = EncodeStats()
@@ -529,8 +665,11 @@ def main() -> int:
     print(f"encode 3840x2160 u8, fused front: {len(fused_data)} bytes, "
           f"counters {dict(fc)}, launches {fused_launches}", flush=True)
     assert fc.get("lfg_packed", 0) == 4 and not fc.get("lfg_fallback"), fc
-    assert fused_launches["frontend_groups"] == fused_launches[
+    # the fused front tokenizes in the kernel: the tokens epilogue once
+    # per dispatch, the q/dc epilogue never
+    assert fused_launches["frontend_tokens"] == fused_launches[
         "transport_prep"] == fc["lfg_packed"] + fc.get("wide_retries", 0)
+    assert fused_launches["frontend_groups"] == 0, fused_launches
     assert fused_data[:2] == b"\xff\x0a"
 
     flips, total = front_flips(img, dev)
@@ -568,7 +707,8 @@ def main() -> int:
           f"edge tiles", flush=True)
     assert tc.get("lfg_packed", 0) == n_chunks + n_edge, tc
     assert tc.get("lfg_fallback", 0) == 0, tc
-    assert tiled_launches["frontend_groups"] == dispatches > 0, tiled_launches
+    assert tiled_launches["frontend_tokens"] == dispatches > 0, tiled_launches
+    assert tiled_launches["frontend_groups"] == 0, tiled_launches
     assert tiled_launches["transport_prep"] == dispatches, tiled_launches
     assert tiled_launches["chunk_pack"] == 2 * dispatches, tiled_launches
     assert tiled[:2] == b"\xff\x0a", tiled[:4].hex()
@@ -590,7 +730,8 @@ def main() -> int:
     unfused_launches = read_counts()
     assert tiled_unfused[:2] == b"\xff\x0a"
     assert tu_stats.counters.get("lfg_fallback", 0) == 0, tu_stats.counters
-    assert unfused_launches["frontend_groups"] == 0, unfused_launches
+    assert unfused_launches["frontend_groups"] == unfused_launches[
+        "frontend_tokens"] == 0, unfused_launches
     assert unfused_launches["transport_prep"] == tu_stats.counters[
         "lfg_packed"] + tu_stats.counters.get("wide_retries", 0)
     print(f"tiled (warm, unfused front): {t_tiled_unfused:.3f} s, "
@@ -604,12 +745,16 @@ def main() -> int:
         print(f"tiled decode PSNR: {djxl.psnr(img / 255.0, dec):.4f} dB",
               flush=True)
 
-    # "launches" is the tiled run with the fused front, the path that runs
-    # all three kernels; each path's counts were zeroed just before it
+    # "launches" is the tiled run with the fused front, the main path:
+    # transport prep, chunk pack and the frontend kernel's tokens
+    # epilogue.  Its q/dc epilogue (frontend_groups) is on no encode path
+    # since the fused front tokenizes in the kernel; it launches only in
+    # phase 3.  Each path's counts were zeroed just before it.
     paths = {"one_frame": launches, "one_frame_fused": fused_launches,
              "tiled_fused": tiled_launches, "tiled": unfused_launches}
     for r in results:
         r["launches"] = tiled_launches[r["name"]]
+        r["on_main_path"] = r["name"] != "frontend_groups"
         r["launches_by_path"] = {k: v[r["name"]] for k, v in paths.items()}
     print(json.dumps({"kernels": results, "encode_4k": {
         "bytes": len(data), "cold_s": t_cold, "warm_s": t_warm,

@@ -105,7 +105,7 @@ def lib() -> ctypes.CDLL:
         L.hyd_chunk_pack.argtypes = [P, P, LL, I, I, P, P, P]
         L.hyd_frontend.restype = I
         L.hyd_frontend.argtypes = [P] + [I] * 7 + [ctypes.c_float, I] \
-            + [P] * 5
+            + [P, P, I, P, P, P, I] + [P] * 6
         _lib = L
     return _lib
 

@@ -1,7 +1,9 @@
 """The front of the packed path: pixels of one LF group -> integer
 tokens.  Twin of hydrium_tpu/ops/pipeline.py encode_lfg: its plain-XLA
 branch here, and with fused=True its Pallas branch, whose kernel is
-ported as ops/frontend.py (csrc/frontend.cu).
+ported as ops/frontend.py (csrc/frontend.cu); on the card that kernel
+also tokenizes, so the fused front writes the tokenizer's streams
+without q in between.
 
 Integer conventions.  CPU torch has no uint32 arithmetic, so every
 unsigned 32-bit quantity is computed in int64 and STORED as int32 with
@@ -61,9 +63,8 @@ def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
 class FrontEnd(torch.nn.Module):
     """The front's constant tables as buffers (the system has no
     weights; these tables and the transport code tables are its state).
-    forward() runs the float part: sample scaling, XYB, the 8x8 DCT and
-    LF/HF quantization, unfused in torch or (fused=True) in the fused
-    front of ops/frontend.py."""
+    forward() runs the float part unfused in torch: sample scaling, XYB,
+    the 8x8 DCT and LF/HF quantization."""
 
     def __init__(self, dct_basis, hf_w_emit, lf_shift, zz_gather,
                  cnzc3, cfc3) -> None:
@@ -90,13 +91,9 @@ class FrontEnd(torch.nn.Module):
 
     def forward(self, pixels: torch.Tensor, height: int, width: int, *,
                 buf_h: int, buf_w: int, linear_light: bool,
-                sample_kind: str, fused: bool = False):
+                sample_kind: str):
         """pixels [uh <= buf_h, uw <= buf_w, 3] -> (q_flat i32 [N, 64] in
         emission order, lf_q i32 [buf_h/8, buf_w/8, 3])."""
-        if fused:
-            return _frontend.frontend_lfg(
-                pixels, height, width, buf_h=buf_h, buf_w=buf_w,
-                linear_light=linear_light, sample_kind=sample_kind)
         uh, uw = pixels.shape[0], pixels.shape[1]
         rgb = pixels.to(torch.float32)
         if uh != buf_h or uw != buf_w:
@@ -227,12 +224,13 @@ def hybridize(values: torch.Tensor):
 
 def tokenize_flat(q: torch.Tensor, nz_flat: torch.Tensor,
                   preset_flat: torch.Tensor, blockctx_flat: torch.Tensor,
-                  clusters_per_preset: int, front: FrontEnd):
+                  clusters_per_preset: int, front):
     """HF context modeling + tokenization on the flat layout (twin of
     pipeline.tokenize_flat, with its analytic 9/3/2/1 cluster rules).
 
     q [N, 64] int32 (slot 0 unused), nz_flat/preset_flat/blockctx_flat
-    [N].  Returns (tokens i16 [u16 bits], clusters u8, residues i32
+    [N]; front: a FrontEnd, or anything with its cnzc3 / cfc3 tables.
+    Returns (tokens i16 [u16 bits], clusters u8, residues i32
     [u32 bits], residue_bits u8, valid_len i32 [N])."""
     nonzero = (q[:, 1:] != 0).to(torch.int64)
     cum = torch.cumsum(nonzero, dim=-1)
@@ -270,19 +268,13 @@ def tokenize_flat(q: torch.Tensor, nz_flat: torch.Tensor,
             residue_bits.to(torch.uint8), valid_len)
 
 
-def front_tokens(front: FrontEnd, pixels: torch.Tensor, height: int,
-                 width: int, presets: torch.Tensor, *, buf_h: int,
-                 buf_w: int, linear_light: bool, sample_kind: str,
-                 clusters_per_preset: int, lf_seg_vb: int = 0,
-                 fused: bool = False) -> Dict[str, torch.Tensor]:
-    """Pixels of one LF group -> the integer front outputs the packed
-    tail consumes (encode_lfg without the cluster histogram).  presets:
-    [G] preset per buffer group; fused selects the fused front.  Keys:
-    lf_q, lf_res (i32 u32-bits), tokens, clusters, residues,
-    residue_bits, valid_len."""
-    q_flat, lf_q = front(pixels, height, width, buf_h=buf_h, buf_w=buf_w,
-                         linear_light=linear_light, sample_kind=sample_kind,
-                         fused=fused)
+def tokenize_lfg(q_flat: torch.Tensor, presets: torch.Tensor, height: int,
+                 width: int, *, buf_h: int, buf_w: int,
+                 clusters_per_preset: int, tabs) -> Dict[str, torch.Tensor]:
+    """q_flat [N, 64] of one LF-group buffer -> tokenize_flat's five
+    streams, with valid_len zeroed for blocks beyond each group's true
+    varblock extent.  presets: [G] preset per buffer group; tabs: any
+    object with the cnzc3 / cfc3 tables (a FrontEnd)."""
     dev = q_flat.device
     gcy, gcx = buf_h >> 8, buf_w >> 8
     G = gcy * gcx
@@ -291,7 +283,7 @@ def front_tokens(front: FrontEnd, pixels: torch.Tensor, height: int,
     blockctx_flat = torch.arange(3, device=dev).repeat(G * 1024)
     tokens, clusters, residues, residue_bits, valid_len = tokenize_flat(
         q_flat, nz_flat, preset_flat, blockctx_flat, clusters_per_preset,
-        front)
+        tabs)
 
     # blocks beyond each group's true varblock extent emit nothing
     vh, vw = (height + 7) >> 3, (width + 7) >> 3
@@ -302,10 +294,36 @@ def front_tokens(front: FrontEnd, pixels: torch.Tensor, height: int,
           & (by[None, None, None, :] < gbw[None, None, :, None]))
     ok = ok.permute(0, 2, 1, 3).reshape(-1).repeat_interleave(3)
     valid_len = torch.where(ok, valid_len, 0)
-
-    return {"lf_q": lf_q, "lf_res": bits32(lf_residuals(lf_q, lf_seg_vb)),
-            "tokens": tokens, "clusters": clusters, "residues": residues,
+    return {"tokens": tokens, "clusters": clusters, "residues": residues,
             "residue_bits": residue_bits, "valid_len": valid_len}
+
+
+def front_tokens(front: FrontEnd, pixels: torch.Tensor, height: int,
+                 width: int, presets: torch.Tensor, *, buf_h: int,
+                 buf_w: int, linear_light: bool, sample_kind: str,
+                 clusters_per_preset: int, lf_seg_vb: int = 0,
+                 fused: bool = False) -> Dict[str, torch.Tensor]:
+    """Pixels of one LF group -> the integer front outputs the packed
+    tail consumes (encode_lfg without the cluster histogram).  presets:
+    [G] preset per buffer group; fused selects the fused front, which on
+    a CUDA tensor tokenizes in the same kernel
+    (ops/frontend.py::frontend_tokens).  Keys: lf_q, lf_res (i32
+    u32-bits), tokens, clusters, residues, residue_bits, valid_len."""
+    kw = dict(buf_h=buf_h, buf_w=buf_w, linear_light=linear_light,
+              sample_kind=sample_kind)
+    if fused:
+        out = _frontend.frontend_tokens(
+            pixels, height, width, presets,
+            clusters_per_preset=clusters_per_preset, **kw)
+        lf_q = out.pop("lf_q")
+    else:
+        q_flat, lf_q = front(pixels, height, width, **kw)
+        out = tokenize_lfg(q_flat, presets, height, width, buf_h=buf_h,
+                           buf_w=buf_w,
+                           clusters_per_preset=clusters_per_preset,
+                           tabs=front)
+    return {"lf_q": lf_q, "lf_res": bits32(lf_residuals(lf_q, lf_seg_vb)),
+            **out}
 
 
 def cluster_histogram(out: Dict[str, torch.Tensor],

@@ -150,25 +150,43 @@ def test_wrappers_reject_bad_inputs(cuda):
 
 
 def _front_pixels(kind, h, w, upload, seed):
+    """Samples of `kind` inside the true extent, zero outside.  "huge" is
+    f32 with a fifth of the samples +-1e30 or +-1e25, so q saturates and
+    the tokenizer sees values >= 2^31."""
     rng = np.random.default_rng(seed)
-    px = np.zeros(upload + (3,), {"uint8": np.uint8, "uint16": np.uint16,
-                                  "float32": np.float32}[kind])
+    px = np.zeros(upload + (3,), {"uint8": np.uint8,
+                                  "uint16": np.uint16}.get(kind, np.float32))
     if kind == "uint8":
         px[:h, :w] = rng.integers(0, 256, (h, w, 3))
     elif kind == "uint16":
         px[:h, :w] = rng.integers(0, 65536, (h, w, 3))
+    elif kind == "huge":
+        s = rng.random((h, w, 3)).astype(np.float32)
+        big = rng.random((h, w, 3)) < 0.2
+        s[big] = rng.choice(np.float32([1e30, -1e30, 1e25, -1e25]),
+                            int(big.sum()))
+        px[:h, :w] = s
     else:
         px[:h, :w] = rng.random((h, w, 3)) ** 2.2
     return px
 
 
-@pytest.mark.parametrize("kind,linear,h,w,buf,upload", [
+FRONT_SHAPES = [
     ("uint8", False, 2048, 2048, (2048, 2048), (2048, 2048)),  # one LFG
     ("uint8", False, 4096, 256, (4096, 256), (4096, 256)),     # tile stack
     ("uint16", False, 300, 520, (512, 768), (320, 544)),
     ("float32", True, 200, 300, (256, 512), (224, 320)),
     ("uint8", False, 112, 256, (256, 256), (128, 256)),        # edge tile
-])
+]
+# and a saturating f32 linear upload (an edge tile), for the exact check
+# only: summing +-1e10 cube roots in another order moves q by far more
+# than a flip, so it has no place in the flip bounds against the twin
+TOKENS_SHAPES = FRONT_SHAPES + [
+    ("huge", True, 112, 256, (256, 256), (128, 256))]
+STREAMS = ("tokens", "clusters", "residues", "residue_bits", "valid_len")
+
+
+@pytest.mark.parametrize("kind,linear,h,w,buf,upload", FRONT_SHAPES)
 def test_frontend_kernel_close_to_plain(cuda, kind, linear, h, w, buf,
                                         upload):
     px = torch.tensor(_front_pixels(kind, h, w, upload, h + w), device=cuda)
@@ -198,6 +216,120 @@ def test_frontend_kernel_masks_outside_true_extent(cuda):
     q1, lf1 = TFE.frontend_lfg(torch.tensor(junk, device=cuda), 112, 200,
                                **kw)
     assert torch.equal(q0, q1) and torch.equal(lf0, lf1)
+
+
+def _tokens_args(kind, linear, h, w, buf, per):
+    G = (buf[0] >> 8) * (buf[1] >> 8)
+    presets = torch.arange(G, dtype=torch.int32) * 5 % 31
+    return presets, dict(buf_h=buf[0], buf_w=buf[1], linear_light=linear,
+                         sample_kind=kind, clusters_per_preset=per)
+
+
+@pytest.mark.parametrize("per", [9, 3, 2, 1])
+@pytest.mark.parametrize("kind,linear,h,w,buf,upload", TOKENS_SHAPES)
+def test_frontend_tokens_kernel_equals_tokenizer_on_its_q(
+        cuda, kind, linear, h, w, buf, upload, per):
+    """The tokens epilogue equals tokenize_flat + the extent mask applied
+    to the q/dc epilogue's q of the same input, exactly: both epilogues
+    share one prologue, so q is the same bit for bit."""
+    px = torch.tensor(_front_pixels(kind, h, w, upload, h + w), device=cuda)
+    sample = "float32" if kind == "huge" else kind
+    presets, kw = _tokens_args(sample, linear, h, w, buf, per)
+    before = (TFE.frontend_tokens.launches, TFE.frontend_groups.launches)
+    got = TFE.frontend_tokens(px, h, w, presets, **kw)
+    q, lf = TFE.frontend_lfg(px, h, w, buf_h=buf[0], buf_w=buf[1],
+                             linear_light=linear, sample_kind=sample)
+    want = TF.tokenize_lfg(q, presets.to(cuda), h, w, buf_h=buf[0],
+                           buf_w=buf[1], clusters_per_preset=per,
+                           tabs=TFE._tables(cuda))
+    torch.cuda.synchronize()
+    assert (TFE.frontend_tokens.launches - before[0],
+            TFE.frontend_groups.launches - before[1]) == (1, 1)
+    assert torch.equal(got["lf_q"], lf)
+    for k in STREAMS:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), (k, int((got[k] != want[k])
+                                                     .sum()))
+    if kind == "huge":
+        # q saturates, and hybridize's int32 view of values >= 2^31
+        # gives 16-bit tokens (>= 2^15) without a residue
+        assert bool((q == torch.iinfo(torch.int32).max).any())
+        assert bool((got["tokens"] < 0).any())
+
+
+@pytest.mark.parametrize("kind,linear,h,w,buf,upload", FRONT_SHAPES)
+def test_frontend_tokens_kernel_close_to_plain(cuda, kind, linear, h, w,
+                                               buf, upload):
+    """Against the plain twin on the card, a flipped q value changes only
+    its own block-channel row: rows that differ stay within the q flip
+    bound."""
+    px = torch.tensor(_front_pixels(kind, h, w, upload, h + w), device=cuda)
+    presets, kw = _tokens_args(kind, linear, h, w, buf, 9)
+    got = TFE.frontend_tokens(px, h, w, presets, **kw)
+    want = TFE.frontend_tokens_plain(px, h, w, presets.to(cuda), **kw)
+    torch.cuda.synchronize()
+    rows = torch.zeros_like(got["valid_len"], dtype=torch.bool)
+    for k in STREAMS:
+        d = got[k] != want[k]
+        rows |= d if d.dim() == 1 else d.any(dim=1)
+    n_q = rows.numel() * 64
+    assert int(rows.sum()) <= FLIP_TOL * n_q, int(rows.sum())
+    assert int((got["lf_q"] - want["lf_q"]).abs().max()) <= 1
+
+
+def test_frontend_tokens_kernel_masks_outside_true_extent(cuda):
+    """Samples of the upload outside the true extent do not reach the
+    streams, and valid_len is 0 for blocks outside the varblock extent."""
+    px = _front_pixels("uint8", 112, 200, (128, 224), 7)
+    junk = px.copy()
+    junk[112:] = 255
+    junk[:, 200:] = 255
+    presets, kw = _tokens_args("uint8", False, 112, 200, (256, 256), 9)
+    a = TFE.frontend_tokens(torch.tensor(px, device=cuda), 112, 200,
+                            presets, **kw)
+    b = TFE.frontend_tokens(torch.tensor(junk, device=cuda), 112, 200,
+                            presets, **kw)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    vl = a["valid_len"].reshape(32, 32, 3)
+    assert int(vl[14:].abs().sum()) == 0 and int(vl[:, 25:].abs().sum()) == 0
+    assert int((vl[:14, :25] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("kind,offset", [("uint8", 0), ("uint8", 1),
+                                         ("uint16", 0), ("float32", 1)])
+def test_frontend_kernel_rows_not_16_byte_aligned(cuda, kind, offset):
+    """A 200x250 upload (rows of 750, 1500 or 3000 bytes), also starting
+    `offset` samples into its storage: the kernel copies the pieces that
+    are not 16-byte aligned itself, with the same results."""
+    host = _front_pixels(kind, 200, 250, (200, 250), 13)
+    flat = torch.zeros(offset + host.size, dtype=torch.from_numpy(host).dtype,
+                       device=cuda)
+    flat[offset:] = torch.from_numpy(host.reshape(-1)).to(cuda)
+    px = flat[offset:].view(200, 250, 3)
+    linear = kind == "float32"
+    kw = dict(buf_h=256, buf_w=256, linear_light=linear, sample_kind=kind)
+    q, lf = TFE.frontend_lfg(px, 200, 250, **kw)
+    pq, plf = TFE.frontend_lfg_plain(px, 200, 250, **kw)
+    presets, tkw = _tokens_args(kind, linear, 200, 250, (256, 256), 9)
+    got = TFE.frontend_tokens(px, 200, 250, presets, **tkw)
+    want = TF.tokenize_lfg(q, presets.to(cuda), 200, 250, buf_h=256,
+                           buf_w=256, clusters_per_preset=9,
+                           tabs=TFE._tables(cuda))
+    torch.cuda.synchronize()
+    flips = int((q != pq).sum()) + int((lf != plf).sum())
+    assert flips <= FLIP_TOL * (q.numel() + lf.numel()), flips
+    assert torch.equal(got["lf_q"], lf)
+    for k in STREAMS:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_frontend_tokens_rejects_bad_presets(cuda):
+    px = torch.zeros((256, 512, 3), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        TFE.frontend_tokens(px, 256, 512, torch.zeros(3, dtype=torch.int32),
+                            buf_h=256, buf_w=512, linear_light=False,
+                            sample_kind="uint8", clusters_per_preset=9)
 
 
 def test_frontend_groups_layout_on_card(cuda):

@@ -214,3 +214,35 @@ def test_cluster_histogram_exact(per, num_presets):
          "clusters": torch.tensor(clusters),
          "valid_len": torch.tensor(valid_len)}, num_clusters)
     np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("per,lf_seg_vb", [(9, 0), (3, 4)])
+def test_front_tokens_fused_takes_tokens_twin(per, lf_seg_vb):
+    """front_tokens(fused=True) on the CPU is frontend_tokens_plain plus
+    the LF residuals, exactly; the unfused front goes through the same
+    tokenize_lfg."""
+    from hydrium_tpu_torch.ops import frontend as TFE
+
+    px = torch.as_tensor(_image(300, 520, "uint8", seed=3))
+    presets = torch.tensor([0, 2, 1, 3, 0, 1], dtype=torch.int32)
+    kw = dict(buf_h=512, buf_w=768, linear_light=False, sample_kind="uint8")
+    fe = TF.FrontEnd.from_tables()
+    got = TF.front_tokens(fe, px, 300, 520, presets, clusters_per_preset=per,
+                          lf_seg_vb=lf_seg_vb, fused=True, **kw)
+    want = TFE.frontend_tokens_plain(px, 300, 520, presets,
+                                     clusters_per_preset=per, **kw)
+    assert list(got) == ["lf_q", "lf_res", "tokens", "clusters", "residues",
+                         "residue_bits", "valid_len"]
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+    assert torch.equal(got["lf_res"],
+                       TF.bits32(TF.lf_residuals(want["lf_q"], lf_seg_vb)))
+    q, lf = fe(px, 300, 520, **kw)
+    unfused = TF.front_tokens(fe, px, 300, 520, presets,
+                              clusters_per_preset=per, lf_seg_vb=lf_seg_vb,
+                              **kw)
+    toks = TF.tokenize_lfg(q, presets, 300, 520, buf_h=512, buf_w=768,
+                           clusters_per_preset=per, tabs=fe)
+    for k, v in toks.items():
+        assert torch.equal(unfused[k], v), k
+    assert torch.equal(unfused["lf_q"], lf)

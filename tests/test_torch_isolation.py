@@ -24,6 +24,7 @@ FORBIDDEN = ("hydrium_tpu", "jax", "jaxlib")
 def _port_files():
     files = sorted((REPO / "hydrium_tpu_torch").rglob("*.py"))
     return files + [REPO / name for name in ("chip_smoke.py",
+                                             "profile_front.py",
                                              "profile_tiled.py",
                                              "profile_transport.py")]
 
