@@ -38,9 +38,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    fallback, each kernel launched exactly as often as the dispatches
    need, the signature, a
    byte-identical second encode, decode PSNR where libjxl loads; also
-   the warm time and launches with the unfused front.
+   the warm time and launches with the unfused front;
+6. the command line on the card: the image written as a PNG (a zlib
+   writer of a few lines) and a 1024x768 f32 PFM, then
+   hydrium_tpu_torch.cli.main one-frame on the PNG (default front),
+   --tile-size=0 on the PNG and one-frame --linear on the PFM (both with
+   HYDRIUM_PALLAS=1, the fused front), on the default device.  Checks:
+   exit 0, the signature, bytes equal to encode_image on the same array
+   on the card, every dispatch packed, each kernel launched as often as
+   the dispatches need, decode PSNR where libjxl loads;
+7. overlap: the one-frame and the tiled encode (fused front) with
+   HYDRIUM_INFLIGHT=0 (each LF group or unit drained before the next is
+   dispatched) and with the default window: equal bytes; both warm
+   walls, the calling thread's blocked time (stage fetch_wait) and the
+   stage seconds, with the card's name and power limit; and
+   BufferedEncoder with a 1 MiB caller buffer over the one-frame encode:
+   the same bytes.
 Each encode path's launch counts are zeroed just before it and read
-just after it.
+just after it.  A dispatch is a packed LF group, stacked chunk or edge
+tile, a wide retry, or the cold-start bootstrap of the transport codec
+(lfg_packed + wide_retries + codec_bootstraps); the codec's warm state
+goes to a temporary directory, so the first encode starts cold.
 
 Prints one JSON line of kernel results, then as the last line
 {"ok": true, "device": {...}}.
@@ -50,9 +68,12 @@ import ctypes.util
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 
@@ -542,6 +563,108 @@ def encode_tiled(img: np.ndarray, fused: bool, stats) -> bytes:
     return bytes(out)
 
 
+def write_png(path: str, arr: np.ndarray) -> None:
+    """An 8-bit RGB PNG of arr, every row unfiltered, in 64-row IDAT
+    chunks (the machine may have no PIL)."""
+    h, w = arr.shape[:2]
+
+    def chunk(ctype: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + ctype + data
+                + struct.pack(">I", zlib.crc32(ctype + data) & 0xFFFFFFFF))
+
+    rows = np.zeros((h, 1 + 3 * w), np.uint8)       # filter byte 0
+    rows[:, 1:] = arr.reshape(h, 3 * w)
+    z = zlib.compressobj(1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        for y in range(0, h, 64):
+            data = z.compress(rows[y:y + 64].tobytes())
+            if data:
+                f.write(chunk(b"IDAT", data))
+        f.write(chunk(b"IDAT", z.flush()))
+        f.write(chunk(b"IEND", b""))
+
+
+def write_pfm(path: str, img: np.ndarray) -> None:
+    """A little-endian color PFM of float32 img (rows bottom-up)."""
+    h, w = img.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"PF\n%d %d\n-1.0\n" % (w, h))
+        f.write(np.ascontiguousarray(img[::-1]).astype("<f4").tobytes())
+
+
+def n_dispatches(counters) -> int:
+    """Dispatches an encode made: packed units, wide retries, and the
+    cold-start bootstrap."""
+    return (counters.get("lfg_packed", 0) + counters.get("wide_retries", 0)
+            + counters.get("codec_bootstraps", 0))
+
+
+def run_cli(argv, fused: bool):
+    """hydrium_tpu_torch.cli.main(argv) on the default device, with
+    HYDRIUM_PALLAS set as `fused` says; returns (exit code, the
+    Encoder's counters, the calling thread's stage seconds)."""
+    from hydrium_tpu_torch import cli
+    from hydrium_tpu_torch import encoder as E
+
+    made = []
+    real = E.Encoder.__init__
+
+    def spy(self, *a, **k):
+        made.append(self)
+        real(self, *a, **k)
+
+    old = os.environ.get("HYDRIUM_PALLAS")
+    os.environ["HYDRIUM_PALLAS"] = "1" if fused else "0"
+    E.Encoder.__init__ = spy
+    try:
+        rc = cli.main(argv)
+    finally:
+        E.Encoder.__init__ = real
+        if old is None:
+            del os.environ["HYDRIUM_PALLAS"]
+        else:
+            os.environ["HYDRIUM_PALLAS"] = old
+    enc, = made
+    assert enc.device.type == "cuda", enc.device
+    assert enc.fused_front == fused
+    return rc, dict(enc.stats.counters), dict(enc.stats.stage_seconds)
+
+
+def encode_one_frame(img: np.ndarray, fused: bool, stats) -> bytes:
+    import torch
+
+    import hydrium_tpu_torch as H
+
+    data = H.encode_image(img, device="cuda", stats=stats, fused_front=fused)
+    torch.cuda.synchronize()
+    return data
+
+
+def timed_with_window(encode, img, inflight):
+    """encode(img, True, stats) with HYDRIUM_INFLIGHT set to `inflight`
+    (None: unset, the default): one warm-up, then one timed run.
+    Returns (bytes, wall seconds, stage seconds)."""
+    from hydrium_tpu_torch import EncodeStats
+
+    old = os.environ.pop("HYDRIUM_INFLIGHT", None)
+    if inflight is not None:
+        os.environ["HYDRIUM_INFLIGHT"] = str(inflight)
+    try:
+        encode(img, True, EncodeStats())
+        stats = EncodeStats()
+        t0 = time.perf_counter()
+        data = encode(img, True, stats)
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("HYDRIUM_INFLIGHT", None)
+        if old is not None:
+            os.environ["HYDRIUM_INFLIGHT"] = old
+    return data, wall, {k: round(v, 4)
+                        for k, v in stats.stage_seconds.items()}
+
+
 def make_4k(seed: int = 0) -> np.ndarray:
     """3840x2160 u8: sinusoid plus Gaussian noise (bench.py make_4k_noisy)."""
     rng = np.random.default_rng(seed)
@@ -583,6 +706,7 @@ def main() -> int:
     sys.path.insert(0, root)
     import hydrium_tpu_torch
     from hydrium_tpu_torch import EncodeStats
+    from hydrium_tpu_torch import encoder as torch_encoder
     from hydrium_tpu_torch.ops import _kernels
     from hydrium_tpu_torch.ops.bitpack import pack_chunks
     from hydrium_tpu_torch.ops.frontend import (frontend_groups,
@@ -597,6 +721,11 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     dev = torch.device("cuda")
+    # the transport codec's warm state: an empty directory of this run's
+    # own, so the first encode starts cold and nothing of the user's is
+    # read or written
+    scratch = tempfile.TemporaryDirectory(prefix="hyd_smoke_")
+    torch_encoder.reset_warm_state(os.path.join(scratch.name, "warm.npz"))
 
     # phase 2: build
     t_build = _kernels.build()
@@ -634,7 +763,8 @@ def main() -> int:
           f"counters {dict(c)}, launches {launches}", flush=True)
     assert c.get("lfg_packed", 0) == 4, c
     assert c.get("lfg_fallback", 0) == 0, c
-    dispatches = c["lfg_packed"] + c.get("wide_retries", 0)
+    assert c.get("codec_bootstraps", 0) == 1, c     # the cold start
+    dispatches = n_dispatches(c)
     assert launches["transport_prep"] == dispatches, launches
     assert launches["chunk_pack"] == 2 * dispatches, launches
     assert launches["frontend_groups"] == launches["frontend_tokens"] == 0
@@ -668,7 +798,7 @@ def main() -> int:
     # the fused front tokenizes in the kernel: the tokens epilogue once
     # per dispatch, the q/dc epilogue never
     assert fused_launches["frontend_tokens"] == fused_launches[
-        "transport_prep"] == fc["lfg_packed"] + fc.get("wide_retries", 0)
+        "transport_prep"] == n_dispatches(fc)
     assert fused_launches["frontend_groups"] == 0, fused_launches
     assert fused_data[:2] == b"\xff\x0a"
 
@@ -700,7 +830,7 @@ def main() -> int:
     t_tiled_cold = time.perf_counter() - t0
     tiled_launches = read_counts()
     tc = t_stats.counters
-    dispatches = tc.get("lfg_packed", 0) + tc.get("wide_retries", 0)
+    dispatches = n_dispatches(tc)
     print(f"tiled 3840x2160 u8, 256^2 tiles, fused front (cold): "
           f"{len(tiled)} bytes, {t_tiled_cold:.3f} s, counters {dict(tc)}, "
           f"launches {tiled_launches}; expect {n_chunks} chunks + {n_edge} "
@@ -732,8 +862,8 @@ def main() -> int:
     assert tu_stats.counters.get("lfg_fallback", 0) == 0, tu_stats.counters
     assert unfused_launches["frontend_groups"] == unfused_launches[
         "frontend_tokens"] == 0, unfused_launches
-    assert unfused_launches["transport_prep"] == tu_stats.counters[
-        "lfg_packed"] + tu_stats.counters.get("wide_retries", 0)
+    assert unfused_launches["transport_prep"] == n_dispatches(
+        tu_stats.counters)
     print(f"tiled (warm, unfused front): {t_tiled_unfused:.3f} s, "
           f"{mpix / t_tiled_unfused:.2f} Mpix/s, {len(tiled_unfused)} bytes, "
           f"launches {unfused_launches}", flush=True)
@@ -745,6 +875,101 @@ def main() -> int:
         print(f"tiled decode PSNR: {djxl.psnr(img / 255.0, dec):.4f} dB",
               flush=True)
 
+    # phase 6: the command line on the card
+    png = os.path.join(scratch.name, "in.png")
+    pfm = os.path.join(scratch.name, "in.pfm")
+    write_png(png, img)
+    rng = np.random.default_rng(768)
+    yy = np.arange(768, dtype=np.float32)[:, None, None]
+    xx = np.arange(1024, dtype=np.float32)[None, :, None]
+    img_f32 = np.clip(0.4 + 0.3 * np.sin(xx / 61.0) * np.cos(yy / 37.0)
+                      + rng.normal(0, 0.03, (768, 1024, 3)), 0,
+                      1).astype(np.float32)
+    write_pfm(pfm, img_f32)
+    cli_runs = {}
+    for name, src, flags, arr, fused, shift, linear, n_units in (
+            ("cli_one_frame", png, ["--one-frame"], img, False, -1, False, 4),
+            ("cli_tiled_fused", png, ["--tile-size=0"], img, True, 0, False,
+             n_chunks + n_edge),
+            ("cli_pfm_linear_fused", pfm, ["--linear"], img_f32, True, -1,
+             True, 1)):
+        out_path = os.path.join(scratch.name, name + ".jxl")
+        zero_counts()
+        t0 = time.perf_counter()
+        rc, cc, stg = run_cli([src, out_path] + flags, fused)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got_launches = read_counts()
+        with open(out_path, "rb") as f:
+            got = f.read()
+        want = hydrium_tpu_torch.encode_image(
+            arr, shift, linear_light=linear, device="cuda", fused_front=fused)
+        print(f"{name}: exit {rc}, {len(got)} bytes, {wall:.3f} s with the "
+              f"input read, counters {cc}, launches {got_launches}",
+              flush=True)
+        assert rc == 0, rc
+        assert got[:2] == b"\xff\x0a", got[:4].hex()
+        assert got == want, f"{name}: bytes differ from encode_image"
+        assert cc.get("lfg_packed", 0) == n_units, cc
+        assert cc.get("lfg_fallback", 0) == 0, cc
+        d = n_dispatches(cc)
+        assert got_launches["transport_prep"] == d, got_launches
+        assert got_launches["chunk_pack"] == 2 * d, got_launches
+        assert got_launches["frontend_tokens"] == (d if fused else 0)
+        assert got_launches["frontend_groups"] == 0, got_launches
+        cli_runs[name] = {"bytes": len(got), "wall_s": wall, "counters": cc,
+                          "launches": got_launches}
+        if ctypes.util.find_library("jxl") is not None:
+            from hydrium_tpu_torch.utils import djxl
+
+            dec = djxl.decode(got)
+            assert dec.shape == arr.shape, dec.shape
+            ref = arr / 255.0 if arr.dtype == np.uint8 else arr
+            print(f"{name} decode PSNR: {djxl.psnr(ref, dec):.4f} dB",
+                  flush=True)
+
+    # phase 7: overlap on against overlap off (HYDRIUM_INFLIGHT=0)
+    overlap = {}
+    for name, encode in (("one_frame", encode_one_frame),
+                         ("tiled", encode_tiled)):
+        off, off_s, off_stages = timed_with_window(encode, img, 0)
+        on, on_s, on_stages = timed_with_window(encode, img, None)
+        assert on == off, f"{name}: bytes differ with HYDRIUM_INFLIGHT=0"
+        overlap[name] = {
+            "inflight_0_s": off_s, "default_s": on_s,
+            "inflight_0_fetch_wait_s": off_stages.get("fetch_wait", 0.0),
+            "default_fetch_wait_s": on_stages.get("fetch_wait", 0.0),
+            "inflight_0_stages_s": off_stages, "default_stages_s": on_stages}
+        print(f"overlap {name} 4K, fused front, warm, on {smi}: "
+              f"HYDRIUM_INFLIGHT=0 {off_s:.3f} s (calling thread blocked "
+              f"{off_stages.get('fetch_wait', 0.0):.3f} s, stages "
+              f"{off_stages}); default window {on_s:.3f} s (blocked "
+              f"{on_stages.get('fetch_wait', 0.0):.3f} s, stages "
+              f"{on_stages}); equal bytes", flush=True)
+    want = encode_one_frame(img, False, EncodeStats())
+    assert want == data, "one-frame bytes changed within the run"
+    be = hydrium_tpu_torch.BufferedEncoder(hydrium_tpu_torch.Encoder(
+        hydrium_tpu_torch.ImageMetadata(width=img.shape[1],
+                                        height=img.shape[0])))
+    buf = bytearray(1 << 20)
+    pushed = bytearray()
+    swaps = 0
+    be.provide_output_buffer(buf)
+    for ty in range(2):
+        for tx in range(2):
+            st = be.send_tile(img[ty * 2048:(ty + 1) * 2048,
+                                  tx * 2048:(tx + 1) * 2048], tx, ty)
+            while st == hydrium_tpu_torch.NEED_MORE_OUTPUT:
+                swaps += 1
+                pushed.extend(buf[:be.release_output_buffer()])
+                be.provide_output_buffer(buf)
+                st = be.pump()
+    pushed.extend(buf[:be.release_output_buffer()])
+    assert be.finished and bytes(pushed) == data, "BufferedEncoder bytes"
+    print(f"BufferedEncoder, 1 MiB buffer: {swaps} swaps, {len(pushed)} "
+          f"bytes, equal to encode_image's", flush=True)
+    scratch.cleanup()
+
     # "launches" is the tiled run with the fused front, the main path:
     # transport prep, chunk pack and the frontend kernel's tokens
     # epilogue.  Its q/dc epilogue (frontend_groups) is on no encode path
@@ -752,6 +977,7 @@ def main() -> int:
     # phase 3.  Each path's counts were zeroed just before it.
     paths = {"one_frame": launches, "one_frame_fused": fused_launches,
              "tiled_fused": tiled_launches, "tiled": unfused_launches}
+    paths.update({k: v["launches"] for k, v in cli_runs.items()})
     for r in results:
         r["launches"] = tiled_launches[r["name"]]
         r["on_main_path"] = r["name"] != "frontend_groups"
@@ -764,7 +990,8 @@ def main() -> int:
         "bytes": len(tiled), "cold_s": t_tiled_cold, "warm_s": t_tiled_warm,
         "mpix_per_s": mpix / t_tiled_warm, "stages_s": tiled_stages,
         "unfused_warm_s": t_tiled_unfused, "chunks": n_chunks,
-        "edge_tiles": n_edge, "counters": dict(tc)}}))
+        "edge_tiles": n_edge, "counters": dict(tc)}, "cli": cli_runs,
+        "overlap": overlap}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

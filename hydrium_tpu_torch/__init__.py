@@ -8,14 +8,20 @@ rANS in `csrc/host/serializer.cc`; the payload parser in `host.py`;
 frame assembly in `encoder.py`).
 
 It covers the packed encode path in one-frame and tiled mode: `Encoder`
-(send_tile, send_tile_batch) and `encode_image`, with hand-written CUDA
-kernels for the fused front, transport prep and chunk packing (`ops/`,
-`csrc/`).
+(send_tile, send_tile_batch), `BufferedEncoder` (caller-owned output
+buffers) and `encode_image`, with hand-written CUDA kernels for the
+fused front, transport prep and chunk packing (`ops/`, `csrc/`), and the
+command line (`python -m hydrium_tpu_torch.cli`, PNG or PFM in, .jxl
+out).
 """
 
-from .config import ImageMetadata, SampleFormat
-from .encoder import Encoder, encode_image
+from .config import (HYD_FLOAT32, HYD_UINT8, HYD_UINT16, ImageMetadata,
+                     SampleFormat)
+from .encoder import (NEED_MORE_OUTPUT, OK, BufferedEncoder, Encoder,
+                      encode_image)
 from .utils.stats import EncodeStats
+from .version import __version__
 
-__all__ = ["EncodeStats", "Encoder", "ImageMetadata", "SampleFormat",
-           "encode_image"]
+__all__ = ["__version__", "ImageMetadata", "SampleFormat", "HYD_UINT8",
+           "HYD_UINT16", "HYD_FLOAT32", "Encoder", "BufferedEncoder", "OK",
+           "NEED_MORE_OUTPUT", "encode_image", "EncodeStats"]

@@ -19,6 +19,10 @@ class SampleFormat(enum.Enum):
     FLOAT32 = "float32"
 
 
+HYD_UINT8 = SampleFormat.UINT8
+HYD_UINT16 = SampleFormat.UINT16
+HYD_FLOAT32 = SampleFormat.FLOAT32
+
 MAX_DIM = 1 << 30          # per-side limit (libhydrium.c:54)
 MAX_PIXELS = 1 << 40       # total-pixel limit (libhydrium.c:60)
 LEVEL10_DIM = 1 << 20      # level-10 container threshold (libhydrium.c:67)

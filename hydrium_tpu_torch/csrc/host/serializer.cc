@@ -1,8 +1,7 @@
 // hydrium-tpu native serialization plane, the PyTorch port's copy.
 //
-// A copy of cpp/serializer.cc without the PNG defilter and the PXPACK
-// pixel packer, which the port does not call; built by
-// hydrium_tpu_torch/jxl/native.py.
+// A copy of cpp/serializer.cc without the PXPACK pixel packer, which
+// the port does not call; built by hydrium_tpu_torch/jxl/native.py.
 //
 // Implements the host-side hot path of the encoder: the LSB-first bit
 // writer, hybrid-uint + LZ77 tokenization, depth-limited prefix coding,
@@ -1280,6 +1279,47 @@ int hyd_hf_encode_all(HydHF* h, int preset_bits, HydWriter** writers,
   worker(0);
   for (auto& th : threads) th.join();
   return failed.load() ? -1 : 0;
+}
+
+// PNG row defilter (spec 9.2): reconstruct one scanline in place.
+// cur[0..n): filtered bytes (filter byte already stripped); prev is the
+// reconstructed previous scanline or NULL for the first row.  Serial by
+// nature (Sub/Paeth chain left-to-right) -- the hot loop of streaming
+// PNG input (utils/pngio.py), the equivalent of the reference CLI's
+// libspng row decode (hydrium.c:407-422).
+int hyd_png_unfilter(uint8_t* cur, const uint8_t* prev, long n, int bpp,
+                     int filter) {
+  auto up = [&](long i) -> int { return prev ? prev[i] : 0; };
+  switch (filter) {
+    case 0:
+      return 0;
+    case 1:
+      for (long i = bpp; i < n; i++) cur[i] = (uint8_t)(cur[i] + cur[i - bpp]);
+      return 0;
+    case 2:
+      for (long i = 0; i < n; i++) cur[i] = (uint8_t)(cur[i] + up(i));
+      return 0;
+    case 3:
+      for (long i = 0; i < bpp; i++) cur[i] = (uint8_t)(cur[i] + up(i) / 2);
+      for (long i = bpp; i < n; i++)
+        cur[i] = (uint8_t)(cur[i] + ((cur[i - bpp] + up(i)) >> 1));
+      return 0;
+    case 4:
+      for (long i = 0; i < n; i++) {
+        int a = i >= bpp ? cur[i - bpp] : 0;
+        int b = up(i);
+        int c = (prev && i >= bpp) ? prev[i - bpp] : 0;
+        int p = a + b - c;
+        int pa = p > a ? p - a : a - p;
+        int pb = p > b ? p - b : b - p;
+        int pc = p > c ? p - c : c - p;
+        int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+        cur[i] = (uint8_t)(cur[i] + pred);
+      }
+      return 0;
+    default:
+      return -1;
+  }
 }
 
 }  // extern "C"

@@ -16,20 +16,35 @@ drained incrementally (`take_output`).  In one-frame mode every
 multi-group frame streams (per-preset ANS as each preset's last LF
 group arrives, sections spooled), as the jax backend does.
 
-Dispatch is synchronous: dispatch, then copy back, per LF group or
-stacked chunk.  The native serialization plane is required (the packed
-path is where the device kernels are).  The transport code starts from
-its generic prior in every Encoder; it changes payload size, never
-output bytes.
+Dispatch and drain overlap.  A dispatch uploads its pixels through a
+pinned staging buffer, enqueues the packed pipeline and returns; its
+payload comes back on a thread of its own (the aux prefix first, then
+exactly the stream words it names, each into a pinned buffer behind a
+CUDA event).  One-frame mode keeps HYDRIUM_INFLIGHT (default 3) LF
+groups in flight and walks them on one ordered drain worker; tiled mode
+fetches every unit on its own thread and keeps two units across calls.
+With device="cpu" the same threads run with plain copies.  An error on
+a worker thread (a checksum mismatch) reaches the caller from
+send_tile, send_tile_batch or the call that finalizes.
+
+The native serialization plane is required (the packed path is where
+the device kernels are).  The transport code is one per process, shared
+by every Encoder and persisted when an encode finishes
+(~/.cache/hydrium_tpu_torch/warm.npz, or $HYDRIUM_TORCH_WARM_CACHE); a
+cold one bootstraps from the first dispatch's histogram.  It changes
+payload size, never output bytes.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import tempfile
+import threading
 import weakref
-from concurrent.futures import ThreadPoolExecutor
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -51,12 +66,134 @@ from .ops.frontend import default_fused
 from .utils.stats import EncodeStats
 
 
+_SHARED_CODEC: Optional[TokenCodec] = None
+_WARM_CACHE = (os.environ.get("HYDRIUM_TORCH_WARM_CACHE")
+               or os.path.expanduser("~/.cache/hydrium_tpu_torch/warm.npz"))
+# (buf_h, buf_w, sample format) of buffers whose content needed the wide
+# residue geometry: later dispatches of that shape skip the doomed
+# narrow one (wide output is always valid, a little larger)
+_WIDE_HINT: dict = {}
+# one dispatch enqueues at a time: re-dispatches (bootstrap, wide retry)
+# come from fetch threads, and the kernels' launch counters are plain
+# attributes
+_DISPATCH_LOCK = threading.Lock()
+_BOOTSTRAP_LOCK = threading.Lock()
+_FETCH_STREAMS: dict = {}
+
+
+def _shared_codec() -> TokenCodec:
+    """One adaptive transport codec per process, shared across Encoders:
+    the code never affects output bytes, only payload size, and a warm
+    code saves ~1 bit/symbol over the generic prior on the first LF
+    groups of every later encode.  State persists across processes
+    (_WARM_CACHE) -- stale state costs payload size until adaptation
+    catches up, never correctness."""
+    global _SHARED_CODEC
+    if _SHARED_CODEC is None:
+        _SHARED_CODEC = TokenCodec(cache_path=_WARM_CACHE)
+        _load_warm_hints()
+    return _SHARED_CODEC
+
+
+def _save_warm_state() -> None:
+    """Persist the codec and the wide hints (best effort, called when an
+    encode finishes), so that a fresh process (a one-shot CLI encode)
+    starts with an adapted code and the wide geometry where its content
+    needs it."""
+    try:
+        if _SHARED_CODEC is not None and not _SHARED_CODEC.cold:
+            _SHARED_CODEC.save(_WARM_CACHE)
+            hints = {"wide": [f"{h}x{w}x{f}" for (h, w, f), v
+                              in list(_WIDE_HINT.items()) if v]}
+            tmp = f"{_WARM_CACHE}.hints.{os.getpid()}.tmp"
+            with open(tmp, "w") as f:
+                json.dump(hints, f)
+            os.replace(tmp, _WARM_CACHE + ".hints.json")
+    except OSError:
+        pass            # an unwritable cache costs the next start only
+
+
+def _load_warm_hints() -> None:
+    try:
+        with open(_WARM_CACHE + ".hints.json") as f:
+            hints = json.load(f)
+        for k in hints.get("wide", []):
+            h, w, fmt = k.split("x")
+            _WIDE_HINT.setdefault((int(h), int(w), fmt), True)
+    except (OSError, ValueError):
+        pass            # no hints, or unreadable ones, are no hints
+
+
+def reset_warm_state(cache_path=None) -> None:
+    """Forget this process's codec and wide hints; the next Encoder
+    loads them again from the cache path, which becomes `cache_path`
+    when one is given.  Tests and smoke runs point it at an empty
+    temporary directory, so that a cold start is really cold."""
+    global _SHARED_CODEC, _WARM_CACHE
+    if cache_path is not None:
+        _WARM_CACHE = str(cache_path)
+    _SHARED_CODEC = None
+    _WIDE_HINT.clear()
+
+
+def _spawn(fn, *args) -> Future:
+    """Run fn(*args) on a daemon thread of its own; the Future carries
+    its result or its exception to whoever joins it."""
+    fut: Future = Future()
+
+    def run():
+        try:
+            fut.set_result(fn(*args))
+        except BaseException as e:      # re-raised on the joining thread
+            fut.set_exception(e)
+
+    threading.Thread(target=run, daemon=True, name="hyd-fetch").start()
+    return fut
+
+
+def _fetch_stream(device: torch.device):
+    """The side stream (one per card) that the stream words come back
+    on, so that a copy does not queue behind later dispatches."""
+    s = _FETCH_STREAMS.get(device)
+    if s is None:
+        # two threads may both make one; the first to land is kept
+        s = _FETCH_STREAMS.setdefault(device, torch.cuda.Stream(device))
+    return s
+
+
+class _HostCopy:
+    """A device tensor on its way to the host.  On a card: a
+    non-blocking copy on the current stream into a pinned buffer, and an
+    event that wait() synchronizes on; the source stays referenced until
+    then, so its memory is not handed out again while another stream
+    reads it.  On the CPU: the tensor's own memory."""
+
+    def __init__(self, t: torch.Tensor) -> None:
+        self._event = None
+        if t.device.type == "cuda":
+            self._src = t
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = self._src = None
+        return self._host.numpy()
+
+
 class _TorchDispatch:
-    """One LF group (or tile, or stack of tiles) on the device: packed
-    dispatch, the device-to-host copy of its payload (fetch), and the
-    host walk into the HF stream (drain).  fused selects the fused
-    front; lf_seg_vb > 0 restarts LF prediction every lf_seg_vb varblock
-    rows (stacked tiles are independent frames)."""
+    """One LF group (or tile, or stack of tiles) on the device.  Making
+    one copies the caller's pixels (synchronously: the caller may reuse
+    its buffer at once), uploads them and enqueues the packed pipeline;
+    start_fetch() brings the payload back on a thread of its own; join()
+    waits for it; drain() walks it into the HF stream.  fused selects
+    the fused front; lf_seg_vb > 0 restarts LF prediction every
+    lf_seg_vb varblock rows (stacked tiles are independent frames)."""
 
     def __init__(self, pixels, sample_fmt: str, linear_light: bool, lfg,
                  preset: int, hf, codec: TokenCodec,
@@ -70,9 +207,12 @@ class _TorchDispatch:
         self.buf_w = min(lfg.tile_count_x << 8, ((w + 255) >> 8) << 8)
         ubuf_h = min(self.buf_h, ((h + 31) >> 5) << 5)
         ubuf_w = min(self.buf_w, ((w + 31) >> 5) << 5)
-        px = np.zeros((ubuf_h, ubuf_w, 3), dtype=np.asarray(pixels).dtype)
-        px[:h, :w] = pixels[:h, :w]
-        self.px = torch.from_numpy(px).to(device)
+        on_card = device.type == "cuda"
+        dtype = torch.from_numpy(np.empty(0, np.asarray(pixels).dtype)).dtype
+        stage = torch.zeros((ubuf_h, ubuf_w, 3), dtype=dtype,
+                            pin_memory=on_card)
+        stage.numpy()[:h, :w] = pixels[:h, :w]
+        self.px = stage.to(device, non_blocking=True) if on_card else stage
         self.lfg, self.preset, self.hf = lfg, preset, hf
         self.codec, self.front, self.device = codec, front, device
         self.stats = stats
@@ -83,64 +223,113 @@ class _TorchDispatch:
         G = (self.buf_h >> 8) * (self.buf_w >> 8)
         self.presets = torch.full((G,), preset, dtype=torch.int32,
                                   device=device)
-        self.wide = False
+        self._wide_key = (self.buf_h, self.buf_w, sample_fmt)
+        self.wide = _WIDE_HINT.get(self._wide_key, False)
+        self._future: Optional[Future] = None
+        self._result = None
+        self._dispatch()
 
-    def _dispatch(self) -> torch.Tensor:
-        """Run the packed pipeline with a snapshot of the codec: the
-        walker must decode with exactly the table the device packed
-        with.  The LUT is sliced to this frame's class count so the
-        walker's class = cluster % (lut.size/4096) matches the device's."""
+    def _dispatch(self) -> None:
+        """Enqueue the packed pipeline with a snapshot of the codec, and
+        the copy of its aux prefix: the walker must decode with exactly
+        the table the device packed with.  The LUT is sliced to this
+        frame's class count so the walker's class = cluster %
+        (lut.size/4096) matches the device's."""
         lens, codes, lut = self.codec.tables()
         self.tok_lut = lut[:self.tok_classes]
         self.lf_lut = lut[LF_CLASS]
-        return _packed.encode_lfg_packed(
-            self.front, self.px, self.lfg.height, self.lfg.width,
-            self.presets,
-            torch.as_tensor(lens.astype(np.int32), device=self.device),
-            torch.as_tensor(codes.astype(np.int32), device=self.device),
-            buf_h=self.buf_h, buf_w=self.buf_w,
-            linear_light=self.linear_light, sample_kind=self.sample_fmt,
-            tok_classes=self.tok_classes, wide_residues=self.wide,
-            lf_seg_vb=self.lf_seg_vb, fused=self.fused)
-
-    def fetch(self):
-        """Dispatch and copy back: the aux prefix (after the wide retry
-        where the payload asks for it) and, for a valid payload, exactly
-        the stream words it needs; the aux histogram goes into the codec.
-        Returns (aux, words or None).  A checksum mismatch raises: a
-        local card has no lossy link that a refetch could fix."""
         A = packed_aux_len(self.buf_h, self.buf_w)
+        with _DISPATCH_LOCK:
+            self._combined = _packed.encode_lfg_packed(
+                self.front, self.px, self.lfg.height, self.lfg.width,
+                self.presets,
+                torch.as_tensor(lens.astype(np.int32), device=self.device),
+                torch.as_tensor(codes.astype(np.int32), device=self.device),
+                buf_h=self.buf_h, buf_w=self.buf_w,
+                linear_light=self.linear_light, sample_kind=self.sample_fmt,
+                tok_classes=self.tok_classes, wide_residues=self.wide,
+                lf_seg_vb=self.lf_seg_vb, fused=self.fused)
+            self._aux = _HostCopy(self._combined[:A])
+
+    def start_fetch(self) -> None:
+        self._future = _spawn(self._fetch)
+
+    def join(self):
+        """(aux, words or None) of the fetch, which runs here when no
+        thread was started for it; raises what the fetch raised."""
+        if self._result is None:
+            self._result = (self._fetch() if self._future is None
+                            else self._future.result())
+        return self._result
+
+    def _checked_aux(self) -> np.ndarray:
+        """Wait for the aux prefix.  A checksum mismatch raises: a local
+        card has no lossy link that a refetch could fix."""
+        aux = self._aux.wait()
+        if not _host.packed_verify(aux, None):
+            raise RuntimeError("packed payload aux checksum mismatch")
+        return aux
+
+    def _fetch(self):
+        """Bring the payload back: the aux prefix (after the cold-start
+        bootstrap and the wide retry where they apply) and, for a valid
+        payload, exactly the stream words it needs; the aux histogram
+        goes into the codec.  Returns (aux, words or None)."""
+        folded = False
+        if self.codec.cold:
+            # cold-start bootstrap, once per cold codec: the generic
+            # prior costs ~1 b/sym on real content, so wait for the aux
+            # prefix only (it holds the per-class histogram), warm the
+            # codec and dispatch again with the adapted code before the
+            # streams are copied back
+            with _BOOTSTRAP_LOCK:
+                if self.codec.cold:
+                    self.codec.update(self._checked_aux()[8:648])
+                    folded = True
+                    if not self.codec.cold:
+                        self._dispatch()
+                        self.stats.count("codec_bootstraps")
         while True:
-            combined = self._dispatch()
-            aux = combined[:A].cpu().numpy()
-            if not _host.packed_verify(aux, None):
-                raise RuntimeError("packed payload aux checksum mismatch")
+            aux = self._checked_aux()
             if int(aux[0]) == 2 and not self.wide:
                 # a residue chunk or field exceeded the fast budget:
-                # repack with the wide geometry
-                self.wide = True
+                # repack with the wide geometry, now and from here on
+                self.wide = _WIDE_HINT[self._wide_key] = True
                 self.stats.count("wide_retries")
+                self._dispatch()
                 continue
             break
         words = None
         if aux[0] & 1:
+            A = packed_aux_len(self.buf_h, self.buf_w)
             need = _host.packed_need_words(aux)
-            words = combined[A:A + need + 1].cpu().numpy().view(np.uint32)
+            span = self._combined[A:A + need + 1]
+            if self.device.type == "cuda":
+                # the dispatch is done (its aux prefix arrived)
+                with torch.cuda.stream(_fetch_stream(self.device)):
+                    copy = _HostCopy(span)
+            else:
+                copy = _HostCopy(span)
+            words = copy.wait().view(np.uint32)
             if not _host.packed_verify(aux, words):
                 raise RuntimeError("packed payload stream checksum mismatch")
-        self.codec.update(aux[8:648])
+        if not folded:
+            self.codec.update(aux[8:648])
+        self._combined = self._aux = None
         return aux, words
 
     def drain(self):
-        """Fetch, then walk into the HF stream.  Returns (lf_q, lf_res)
-        for the LF group section (one of them None)."""
-        aux, words = self.fetch()
+        """Join the fetch, then walk into the HF stream.  Returns
+        (lf_q, lf_res) for the LF group section (one of them None)."""
+        aux, words = self.join()
         if words is not None:
             parsed = _host._parse_packed(aux, words, self.buf_h, self.buf_w,
                                          self.lfg, self.lf_lut)
             if parsed is not None:
-                _host._feed_hf_packed(self.hf, parsed, self.lfg, self.buf_w,
-                                      self.buf_h, self.preset, self.tok_lut)
+                with self.stats.stage("walk"):
+                    _host._feed_hf_packed(self.hf, parsed, self.lfg,
+                                          self.buf_w, self.buf_h,
+                                          self.preset, self.tok_lut)
                 self.stats.count("lfg_packed")
                 return None, parsed["lf_res"]
         self.stats.count("lfg_fallback")
@@ -150,12 +339,14 @@ class _TorchDispatch:
         """The unpacked path (a token outside the transport alphabet or
         residues beyond even the wide budget), still on the device."""
         lfg = self.lfg
-        out = _front.encode_lfg(
-            self.front, self.px, lfg.height, lfg.width, self.presets,
-            buf_h=self.buf_h, buf_w=self.buf_w,
-            linear_light=self.linear_light, num_clusters=self.num_clusters,
-            sample_kind=self.sample_fmt, lf_seg_vb=self.lf_seg_vb,
-            clusters_per_preset=self.tok_classes, fused=self.fused)
+        with _DISPATCH_LOCK:
+            out = _front.encode_lfg(
+                self.front, self.px, lfg.height, lfg.width, self.presets,
+                buf_h=self.buf_h, buf_w=self.buf_w,
+                linear_light=self.linear_light,
+                num_clusters=self.num_clusters,
+                sample_kind=self.sample_fmt, lf_seg_vb=self.lf_seg_vb,
+                clusters_per_preset=self.tok_classes, fused=self.fused)
         vh, vw = lfg.varblock_height, lfg.varblock_width
         bgcx = self.buf_w >> 8
         G = (self.buf_h >> 8) * bgcx
@@ -269,7 +460,13 @@ class Encoder:
     (ops/frontend.py); None means as HYDRIUM_PALLAS says, which is off
     unless it is "1".  streaming=False keeps a multi-group one-frame
     encode in RAM and encodes its ANS sections at the end; spool_dir
-    spools a streaming encode's sections to disk."""
+    spools a streaming encode's sections to disk.
+
+    One-frame mode keeps up to HYDRIUM_INFLIGHT (default 3, read when
+    the Encoder is made) LF groups in flight behind the one being sent;
+    0 drains each before send_tile returns, and in tiled mode drains
+    each unit as soon as it is dispatched.  The transport codec is the
+    process's shared one (_shared_codec)."""
 
     def __init__(self, metadata: ImageMetadata, device="cuda",
                  streaming: Optional[bool] = None,
@@ -293,8 +490,9 @@ class Encoder:
         self._tb_run = []            # pending cross-call stacked run
         self._tb_run_fmt = None      # the pending run's sample format
         self._tb_flush_pending = False
-        self._tb_pool_ = None
-        self._codec = TokenCodec()
+        self._codec = _shared_codec()
+        self.max_inflight = int(os.environ.get("HYDRIUM_INFLIGHT", "3"))
+        self._pending = deque()      # one-frame drain futures, oldest first
         self._front = _front.FrontEnd.from_tables().to(self.device)
         self.fused_front = (default_fused() if fused_front is None
                             else bool(fused_front))
@@ -321,6 +519,17 @@ class Encoder:
             self._lf_spool: Optional[_SectionSpool] = None
             self._hf = None
             self._sent = set()
+            # one ordered worker: joins each LF group's fetch, runs the
+            # C++ walk (ctypes releases the GIL) and, in streaming mode,
+            # the preset's ANS encode, so the HF stream is touched by
+            # this thread only, in dispatch order, until finalize
+            self._drain_exec = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="hyd-drain")
+        else:
+            # made here, not at first use: units' fetch threads submit
+            # renders (threads start at the first submit)
+            self._tb_pool = ThreadPoolExecutor(
+                max_workers=4, thread_name_prefix="hyd-tile")
 
     # -- public API -----------------------------------------------------
 
@@ -393,6 +602,20 @@ class Encoder:
         hf = getattr(self, "_hf", None)
         if hf is not None and hasattr(hf, "close"):
             hf.close()
+        self._stop_workers()
+
+    def _stop_workers(self) -> None:
+        for name in ("_drain_exec", "_tb_pool"):
+            pool = getattr(self, name, None)
+            if pool is not None:
+                pool.shutdown(wait=False)
+
+    def _finish(self) -> None:
+        """The last frame is out: persist the warm state, stop the
+        worker threads."""
+        self._finished = True
+        _save_warm_state()
+        self._stop_workers()
 
     def set_suggested_icc_profile(self, icc_data: Optional[bytes]) -> None:
         """libhydrium.c:242-305 (one-frame mode only, before first tile)."""
@@ -409,7 +632,8 @@ class Encoder:
 
     def _dispatch(self, pixels, fmt: str, lfg, preset: int, hf,
                   lf_seg_vb: int = 0) -> _TorchDispatch:
-        """Copy `pixels` to the device as one dispatch unit."""
+        """Copy `pixels` to the device as one dispatch unit and enqueue
+        its packed pipeline."""
         return _TorchDispatch(
             pixels, fmt, self.metadata.linear_light, lfg, preset, hf,
             self._codec, self._front, self.device, self.stats,
@@ -431,9 +655,11 @@ class Encoder:
     # -- tiled mode ------------------------------------------------------
     #
     # Units in flight are dicts: "chunk" (a stack of full-size tiles,
-    # dispatched and fetched when it is made, its tiles rendered on the
-    # 4-worker pool) and "edge" (one clipped tile, dispatched when it is
-    # made, walked when it drains).  Frames leave in send order.
+    # dispatched when it is made; a thread of its own fetches and parses
+    # it and submits its tiles' renders to the 4-worker pool) and "edge"
+    # (one clipped tile, dispatched and its fetch started when it is
+    # made, walked when it drains).  Frames leave in send order; the
+    # calling thread only joins (stage "fetch_wait").
 
     def _tile_geometry(self, tile_x: int, tile_y: int) -> LFGroupGeometry:
         m = self.metadata
@@ -493,7 +719,7 @@ class Encoder:
                                         include_header)
         self._out.extend(data)
         if last:
-            self._finished = True
+            self._finish()
 
     def _send_tile_tiled(self, pixels, tile_x, tile_y, is_last, fmt) -> None:
         m = self.metadata
@@ -515,9 +741,11 @@ class Encoder:
         streams come back separable, and LF prediction restarts at every
         tile.  A run of full-size tiles persists across calls until it
         fills, an edge tile or the last tile arrives, or the sample
-        format changes.  Clipped edge tiles run one at a time.  Frames
-        are emitted strictly in send order, all but the last two units
-        by the end of each call."""
+        format changes.  Clipped edge tiles run one at a time.  Every
+        unit's payload comes back on a thread of its own.  Frames are
+        emitted strictly in send order, all but the last two units by
+        the end of each call (HYDRIUM_INFLIGHT=1 keeps one; 0 drains
+        each unit as soon as it is dispatched)."""
         if self._finished:
             raise RuntimeError("tile sent after the last tile")
         m = self.metadata
@@ -545,36 +773,46 @@ class Encoder:
                 run.append((np.array(pixels[:th, :tw], copy=True),
                             tx, ty, lfg))
                 if len(run) == k_stack:
-                    self._tb_units.append(self._tb_chunk(run, fmt, k_stack))
+                    self._tb_add(self._tb_chunk(run, fmt, k_stack))
                     run = []
                 continue
             if run:
-                self._tb_units.append(self._tb_chunk(run, fmt, k_stack))
+                self._tb_add(self._tb_chunk(run, fmt, k_stack))
                 run = []
             hf = HFStream(1)
-            handle = self._dispatch(pixels, fmt, lfg, 0, hf)
+            with self.stats.stage("dispatch"):
+                handle = self._dispatch(pixels, fmt, lfg, 0, hf)
+            handle.start_fetch()
             include_header = not self._wrote_header
             self._wrote_header = True
-            self._tb_units.append({"kind": "edge", "handle": handle,
-                                   "hf": hf, "lfg": lfg, "tx": tx, "ty": ty,
-                                   "include_header": include_header})
+            self._tb_add({"kind": "edge", "handle": handle, "hf": hf,
+                          "lfg": lfg, "tx": tx, "ty": ty,
+                          "include_header": include_header})
         contains_last = any(self._tile_is_last(tx, ty, tw, th, -1)
                             for _p, tx, ty in entries)
         if run:
             if contains_last or self._tb_flush_pending:
-                self._tb_units.append(self._tb_chunk(run, fmt, k_stack))
+                self._tb_add(self._tb_chunk(run, fmt, k_stack))
             else:
                 self._tb_run, self._tb_run_fmt = run, fmt
-        keep = 0 if contains_last else 2
+        keep = 0 if contains_last else min(2, self.max_inflight)
         while len(self._tb_units) > keep:
+            self._tb_drain_unit(self._tb_units.pop(0))
+
+    def _tb_add(self, unit) -> None:
+        """Queue a dispatched unit; with a window of 0 drain it (and any
+        before it) at once, so that nothing overlaps."""
+        self._tb_units.append(unit)
+        while self.max_inflight == 0 and self._tb_units:
             self._tb_drain_unit(self._tb_units.pop(0))
 
     def _tb_chunk(self, part, fmt: str, k_stack: int) -> dict:
         """Stack the full-size tiles of `part` ((pixels, tx, ty, lfg)
-        each) into one k_stack-tile buffer, dispatch and fetch it, and
-        submit its tiles' renders.  On a payload that does not pack
-        (ok = 0), the unit keeps no result and re-encodes tile by tile
-        when it drains, under its own sample format."""
+        each) into one k_stack-tile buffer and dispatch it; the unit's
+        own thread fetches it, parses it and submits its tiles' renders.
+        On a payload that does not pack (ok = 0), the unit keeps no
+        result and re-encodes tile by tile when it drains, under its own
+        sample format."""
         m = self.metadata
         tw, th = m.tile_width, m.tile_height
         bh = k_stack * th
@@ -586,41 +824,51 @@ class Encoder:
         self._wrote_header = True
         geo = LFGroupGeometry(x=0, y=0, width=tw, height=bh,
                               tile_count_x=tw >> 8, tile_count_y=bh >> 8)
-        with self.stats.stage("pipeline+transfer"):
+        with self.stats.stage("dispatch"):
             # HFStream(1) sets the class count (9); the walk is per tile
             handle = self._dispatch(px, fmt, geo, 0, HFStream(1),
                                     lf_seg_vb=th >> 3)
-            aux, words = handle.fetch()
-            parsed = (None if words is None else _host._parse_packed(
-                aux, words, bh, tw, geo, handle.lf_lut))
         unit = {"kind": "chunk", "px": px, "fmt": fmt,
                 "metas": [(tx, ty, lfg) for _p, tx, ty, lfg in part],
                 "include_header": include_header, "result": None,
                 "futs": None}
+        unit["fetch"] = _spawn(self._tb_fetch_chunk, unit, handle, geo)
+        return unit
+
+    def _tb_fetch_chunk(self, unit, handle: _TorchDispatch, geo) -> None:
+        """On the unit's own thread: fetch, parse, submit the renders."""
+        with self.stats.stage("pipeline+transfer"):
+            aux, words = handle.join()
+            parsed = (None if words is None else _host._parse_packed(
+                aux, words, geo.height, geo.width, geo, handle.lf_lut))
         if parsed is None:
             self.stats.count("lfg_fallback")
-            return unit
+            return
         self.stats.count("lfg_packed")
         unit["result"] = (parsed, handle.tok_lut)
         self._tb_submit_renders(unit)
-        return unit
 
     def _tb_drain_unit(self, unit) -> None:
-        """Emit one unit's frames (send order).  A chunk without a result
-        re-encodes its tiles one by one under the sample format it was
-        sent with, unit["fmt"]."""
+        """Emit one unit's frames (send order), joining its fetch thread
+        and its renders; what they raised is raised here.  A chunk
+        without a result re-encodes its tiles one by one under the
+        sample format it was sent with, unit["fmt"]."""
         m = self.metadata
         tw, th = m.tile_width, m.tile_height
         if self._finished:
             raise RuntimeError("tile sent after the last tile")
         if unit["kind"] == "edge":
             last = self._tile_is_last(unit["tx"], unit["ty"], tw, th, -1)
+            with self.stats.stage("fetch_wait"):
+                unit["handle"].join()
             with self.stats.stage("pipeline+transfer"):
                 lf_q, lf_res = unit["handle"].drain()
             self._emit_tiled_frame(unit["lfg"], last, lf_q, lf_res,
                                    unit["hf"],
                                    include_header=unit["include_header"])
             return
+        with self.stats.stage("fetch_wait"):
+            unit["fetch"].result()
         if unit["futs"] is None:
             # the first fallback frame writes the header the unit claimed
             if unit["include_header"]:
@@ -634,13 +882,16 @@ class Encoder:
         for f, last in unit["futs"]:
             if self._finished:
                 raise RuntimeError("tile sent after the last tile")
-            self._out.extend(f.result())
+            with self.stats.stage("fetch_wait"):
+                frame = f.result()
+            self._out.extend(frame)
             if last:
-                self._finished = True
+                self._finish()
 
     def _tb_submit_renders(self, unit) -> None:
         """Submit a fetched chunk unit's per-tile walk + ANS + frame
-        serialization to the 4-worker pool (the walker and ANS encoder
+        serialization to the 4-worker pool (called on the unit's fetch
+        thread as soon as its payload parses; the walker and ANS encoder
         release the GIL in C++).  Results are collected strictly in send
         order by _tb_drain_unit."""
         m = self.metadata
@@ -665,7 +916,7 @@ class Encoder:
                 lfg, last, None, parsed["lf_res"][lf0:lf0 + (th >> 3)],
                 hf, include_header)
 
-        pool = self._tb_pool()
+        pool = self._tb_pool
         futs = []
         for j, (tx, ty, lfg) in enumerate(unit["metas"]):
             last = self._tile_is_last(tx, ty, tw, th, -1)
@@ -673,12 +924,6 @@ class Encoder:
                                      unit["include_header"] and j == 0),
                          last))
         unit["futs"] = futs
-
-    def _tb_pool(self) -> ThreadPoolExecutor:
-        if self._tb_pool_ is None:
-            self._tb_pool_ = ThreadPoolExecutor(
-                max_workers=4, thread_name_prefix="hyd-tile")
-        return self._tb_pool_
 
     def _tb_drain_all(self) -> None:
         if self._tb_run:
@@ -738,20 +983,43 @@ class Encoder:
                                      else np.uint16 if fmt == "uint16"
                                      else np.float32)
                     self._process_lfg(zeros, missing, fmt)
+            while self._pending:
+                self._drain_one()
             self._finalize_one_frame()
 
     def _process_lfg(self, pixels, lfid: int, fmt: str) -> None:
+        """Dispatch one LF group, start its fetch, queue its walk on the
+        drain worker, and drain the oldest groups beyond the window."""
         lfg = self._lfgs[lfid]
         self._sent.add(lfid)
         self._geo.lfg_arrival.append(lfid)
         preset = lfid // self._geo.lfg_per_preset
+        with self.stats.stage("dispatch"):
+            handle = self._dispatch(pixels, fmt, lfg, preset, self._hf)
+        handle.start_fetch()
+        self._pending.append(self._drain_exec.submit(self._drain_work,
+                                                     handle))
+        while len(self._pending) > self.max_inflight:
+            self._drain_one()
+
+    def _drain_work(self, handle: _TorchDispatch):
+        """On the drain worker, in dispatch order: join the fetch, walk
+        the payload into the HF stream (or run the unpacked fallback),
+        and in streaming mode finish the preset's ANS sections."""
         with self.stats.stage("pipeline+transfer"):
-            lf_q, lf_res = self._dispatch(pixels, fmt, lfg, preset,
-                                          self._hf).drain()
-        self._write_lf(lf_q, lf_res)
+            lf_q, lf_res = handle.drain()
         if self.streaming:
             with self.stats.stage("ans_encode"):
-                self._hf.finish_lfg(preset)
+                self._hf.finish_lfg(handle.preset)
+        return lf_q, lf_res
+
+    def _drain_one(self) -> None:
+        """Wait for the oldest LF group in flight (what its threads
+        raised is raised here) and write its LF section."""
+        fut = self._pending.popleft()
+        with self.stats.stage("fetch_wait"):
+            lf_q, lf_res = fut.result()
+        self._write_lf(lf_q, lf_res)
 
     def _write_lf(self, lf_q, lf_res) -> None:
         with self.stats.stage("lf_sections"):
@@ -809,7 +1077,7 @@ class Encoder:
                 hf.close()
 
             self._emit_iter = emit()
-            self._finished = True
+            self._finish()
             return
 
         asm = self._assembler
@@ -826,7 +1094,138 @@ class Encoder:
         asm.write_toc_sizes(main)
         self._out.extend(main.finalize())
         self._out.extend(asm.working.finalize())
-        self._finished = True
+        self._finish()
+
+
+# BufferedEncoder.send_tile / pump status values (reference HYD_OK /
+# HYD_NEED_MORE_OUTPUT, libhydrium.h)
+OK = "ok"
+NEED_MORE_OUTPUT = "need-more-output"
+
+
+class BufferedEncoder:
+    """Push-model (caller-owned output buffer) adapter over `Encoder`.
+
+    Reference parity for the buffer-swap output contract:
+    hyd_provide_output_buffer / HYD_NEED_MORE_OUTPUT /
+    hyd_release_output_buffer (libhydrium.c:114-166, bitwriter.c:42-73).
+    The core Encoder is pull-model (`iter_output`); this adapter restores the reference surface: output lands only in
+    buffers the CALLER owns, `send_tile` suspends with NEED_MORE_OUTPUT
+    when one fills mid-drain, and encoding resumes after
+    release_output_buffer + provide_output_buffer + pump -- the
+    reference's swap-and-recall loop.  Host memory stays bounded by the
+    spool exactly as in the pull model.
+
+        buf = bytearray(1 << 20)
+        be = BufferedEncoder(Encoder(meta, device=...))
+        be.provide_output_buffer(buf)
+        st = be.send_tile(px, 0, 0)
+        while st == NEED_MORE_OUTPUT:
+            n = be.release_output_buffer()
+            sink.write(buf[:n])
+            be.provide_output_buffer(buf)
+            st = be.pump()
+    """
+
+    def __init__(self, encoder: Encoder) -> None:
+        self.encoder = encoder
+        self._buf: Optional[memoryview] = None
+        self._pos = 0
+        self._chunks = deque()      # (bytes, consumed-offset) backlog
+        self._emit = None           # live iter_output generator
+
+    def provide_output_buffer(self, buf) -> None:
+        """Hand the encoder a writable caller-owned byte buffer
+        (bytearray / writable memoryview; libhydrium.c:114-136)."""
+        if self._buf is not None:
+            raise RuntimeError("release the current output buffer first")
+        view = memoryview(buf).cast("B")
+        if view.readonly:
+            raise ValueError("output buffer must be writable")
+        if len(view) < 64:
+            # reference parity: hyd_provide_output_buffer rejects
+            # buffers under 64 bytes (libhydrium.c); tiny buffers would
+            # also degenerate _drain into a byte-at-a-time loop
+            raise ValueError("output buffer must be at least 64 bytes")
+        self._buf = view
+        self._pos = 0
+
+    def release_output_buffer(self) -> int:
+        """Reclaim the current buffer; returns the bytes written into it
+        (libhydrium.c:138-151).  The encoder holds no reference to the
+        buffer afterwards."""
+        if self._buf is None:
+            raise RuntimeError("no output buffer provided")
+        n = self._pos
+        self._buf.release()
+        self._buf = None
+        self._pos = 0
+        return n
+
+    def send_tile(self, pixels, tile_x: int = 0, tile_y: int = 0,
+                  is_last: int = -1,
+                  sample_fmt: SampleFormat = SampleFormat.UINT8) -> str:
+        """Encode one tile, draining its output into the provided
+        buffer.  Returns NEED_MORE_OUTPUT when the buffer filled first:
+        release/swap buffers and `pump()` until OK before sending the
+        next tile.  If called while output is still pending it resumes
+        the drain without re-encoding (the reference tolerates the same
+        re-call after a swap)."""
+        if self._drain() == NEED_MORE_OUTPUT:
+            return NEED_MORE_OUTPUT
+        self.encoder.send_tile(pixels, tile_x, tile_y, is_last, sample_fmt)
+        return self._drain()
+
+    def pump(self) -> str:
+        """Continue copying pending output after a buffer swap; OK means
+        everything produced so far has been delivered."""
+        return self._drain()
+
+    @property
+    def finished(self) -> bool:
+        """True once the last tile was encoded AND fully delivered."""
+        return (self.encoder.finished and not self._chunks
+                and self._emit is None and not self.encoder._out
+                and self.encoder._emit_iter is None)
+
+    def _drain(self) -> str:
+        if self._buf is None:
+            raise RuntimeError("no output buffer provided")
+        while True:
+            if not self._chunks:
+                nxt = self._next_chunk()
+                if nxt is None:
+                    return OK
+                self._chunks.append((nxt, 0))
+            chunk, off = self._chunks[0]
+            room = len(self._buf) - self._pos
+            take = min(room, len(chunk) - off)
+            self._buf[self._pos:self._pos + take] = chunk[off:off + take]
+            self._pos += take
+            if off + take < len(chunk):
+                self._chunks[0] = (chunk, off + take)
+                return NEED_MORE_OUTPUT
+            self._chunks.popleft()
+
+    def _next_chunk(self) -> Optional[bytes]:
+        # A paused iter_output generator only exists while this adapter
+        # reports NEED_MORE_OUTPUT (send_tile refuses to encode then),
+        # so the encoder never adds output behind a live generator's
+        # back; when one ends, the next call starts a fresh one.
+        # The pull granularity follows the CALLER's buffer size, so the
+        # adapter's internal backlog stays ~one buffer's worth -- the
+        # memory-bound the reference achieves by suspending mid-section
+        # (libhydrium.c:114-166); a tiny 64-byte buffer holds the
+        # backlog near the spool read unit instead of a 4 MB chunk.
+        if self._emit is None:
+            cs = max(64, len(self._buf)) if self._buf is not None \
+                else 1 << 16
+            self._emit = self.encoder.iter_output(chunk_size=cs)
+        for c in self._emit:
+            if c:
+                return c
+        self._emit = None
+        return None
 
 
 def encode_image(image: np.ndarray, tile_size_shift: int = -1,
@@ -839,7 +1238,7 @@ def encode_image(image: np.ndarray, tile_size_shift: int = -1,
     one frame (tile_size_shift -1) or tiles of 256 << tile_size_shift,
     sent through send_tile_batch 16 at a time.  `stats`, when given,
     receives the encode's stage times and counters (lfg_packed,
-    lfg_fallback, wide_retries)."""
+    lfg_fallback, wide_retries, codec_bootstraps)."""
     if sample_fmt is None:
         sample_fmt = {np.dtype(np.uint8): SampleFormat.UINT8,
                       np.dtype(np.uint16): SampleFormat.UINT16}.get(

@@ -5,7 +5,9 @@ Builds build/torch_host/libhydtpu.so with g++ on first use, under a file
 lock: processes that start together on a checkout without build/ (test
 workers, several encoders) then build once, and the others wait and
 load the finished library.  Each build writes a temporary file of its
-own and renames it into place.  Every class here duck-types its
+own and renames it into place, and leaves the hash of its source and
+flags beside it (libhydtpu.so.hash): a library built from another
+source is rebuilt, whatever the files' times say.  Every class here duck-types its
 pure-Python twin in bitwriter.py / entropy.py so the header/frame code
 runs unchanged on either plane.
 """
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import hashlib
 import os
 import subprocess
 from typing import List, Optional, Sequence
@@ -26,19 +29,33 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_PATH = os.path.join(_PKG, "csrc", "host", "serializer.cc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_host")
 _SO_PATH = os.path.join(_BUILD_DIR, "libhydtpu.so")
+_HASH_PATH = _SO_PATH + ".hash"
 GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _lib = None
 _load_error: Optional[str] = None
 
 
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    with open(_SRC_PATH, "rb") as f:
+        h.update(f.read())
+    return h.hexdigest()
+
+
 def _stale() -> bool:
-    return (not os.path.exists(_SO_PATH)
-            or os.path.getmtime(_SO_PATH) < os.path.getmtime(_SRC_PATH))
+    """True when the library is missing or was built from another source
+    or with other flags (no hash file counts as another source)."""
+    try:
+        with open(_HASH_PATH) as f:
+            built_from = f.read().strip()
+    except OSError:
+        return True
+    return not os.path.exists(_SO_PATH) or built_from != _source_hash()
 
 
 def _build() -> None:
-    """Build the library if it is missing or older than its source, with
+    """Build the library if it is missing or stale, with
     build/torch_host/.lock held so that one process builds at a time."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     with open(os.path.join(_BUILD_DIR, ".lock"), "w") as lock:
@@ -50,6 +67,9 @@ def _build() -> None:
             subprocess.run(["g++", *GXX_FLAGS, _SRC_PATH, "-o", tmp],
                            check=True, capture_output=True)
             os.replace(tmp, _SO_PATH)
+            with open(tmp, "w") as f:
+                f.write(_source_hash())
+            os.replace(tmp, _HASH_PATH)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
@@ -119,6 +139,10 @@ def _load():
         lib.hyd_lf_decode.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_long, ctypes.c_long,
                                       ctypes.c_void_p]
+        lib.hyd_png_unfilter.restype = ctypes.c_int
+        lib.hyd_png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                         ctypes.c_long, ctypes.c_int,
+                                         ctypes.c_int]
         _lib = lib
     except (OSError, subprocess.CalledProcessError) as e:
         # no g++, a failed build or an unwritable build/: no native plane
@@ -128,6 +152,18 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def png_unfilter(cur: np.ndarray, prev: Optional[np.ndarray], bpp: int,
+                 filt: int) -> None:
+    """Reconstruct one PNG scanline in place (spec 9.2): cur is the
+    filtered row (u8, contiguous, the filter byte stripped), prev the
+    reconstructed row above it or None.  Raises on an unknown filter."""
+    ret = _load().hyd_png_unfilter(
+        cur.ctypes.data, None if prev is None else prev.ctypes.data,
+        cur.size, bpp, filt)
+    if ret != 0:
+        raise ValueError(f"bad PNG filter {filt}")
 
 
 def lf_decode(words: np.ndarray, lf_lut: np.ndarray, lf_n: int,

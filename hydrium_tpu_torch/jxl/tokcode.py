@@ -1,5 +1,5 @@
 """Transport prefix code for the device->host token stream (the port's
-copy of hydrium_tpu/jxl/tokcode.py, without its on-disk warm state).
+copy of hydrium_tpu/jxl/tokcode.py).
 
 The device pipeline ships HF hybrid-uint tokens (alphabet 0..63 under
 config (4,1,0)) to the host.  Shipping them as flat 6-bit fields costs
@@ -30,6 +30,8 @@ construction of jxl/entropy.py (entropy.c:592-707)."""
 
 from __future__ import annotations
 
+import os
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -112,30 +114,76 @@ def build_tables(freqs: np.ndarray) -> Tuple[np.ndarray, np.ndarray,
 
 class TokenCodec:
     """Adaptive transport code: updated from each LF group's device-side
-    per-class token histogram, applied to the next dispatch.  Starts
-    from the generic prior in every Encoder: the code changes payload
-    size, never output bytes.  One Encoder's dispatches, and so its
-    codec, run on the thread that calls it."""
+    per-class token histogram, applied to the next dispatch.
 
-    __slots__ = ("freqs", "_tables")
+    `cold` is True until the first real histogram arrives; a cold codec
+    only has the generic prior, which costs ~1 b/sym on real content --
+    cold dispatches therefore bootstrap with a cheap aux-only copy
+    (encoder._TorchDispatch._fetch) before the big payload comes back.
 
-    def __init__(self) -> None:
+    State optionally persists across processes (load/save): a stale code
+    only costs compression until adaptation catches up, never
+    correctness, so warm-starting a fresh CLI process is free."""
+
+    __slots__ = ("freqs", "_tables", "cold", "_lock")
+
+    def __init__(self, cache_path=None) -> None:
+        # the fetch threads of several in-flight dispatches feed the
+        # process-shared codec; update's read-modify-write needs a lock
+        self._lock = threading.Lock()
         self.freqs = _default_prior()
         self._tables = None
+        self.cold = True
+        if cache_path:
+            self.load(cache_path)
+
+    def load(self, path) -> None:
+        """Take the histogram saved at `path`, if there is a valid one."""
+        try:
+            if os.path.exists(path):
+                f = np.load(path)["freqs"]
+                # reject warm state of another format (e.g. 9 rows)
+                if f.shape == (NROWS, ALPHABET) and f.sum() > 0:
+                    self.freqs = f.astype(np.int64)
+                    self._tables = None
+                    self.cold = False
+        except Exception:
+            pass        # an unreadable cache is no cache
+
+    def save(self, path) -> None:
+        """Write the histogram to `path` (best effort, atomically)."""
+        try:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                np.savez(f, freqs=self.freqs)
+            os.replace(tmp, path)
+        except Exception:
+            pass        # an unwritable cache costs the next start only
 
     def update(self, hist: np.ndarray) -> None:
         """Fold in one LF group's exact [NROWS, 64] transport-symbol
         histogram (aux payload; rows 0..8 HF classes, row 9 LF tokens).
-        Exponential decay keeps the code tracking content changes."""
+        Exponential decay keeps the code tracking content changes.
+        Thread-safe: concurrent callers serialize on the codec lock."""
         h = np.asarray(hist, np.int64).reshape(NROWS, ALPHABET)
         if h.sum() <= 0:
             return
-        self.freqs = self.freqs // 2 + h
-        self._tables = None
+        with self._lock:
+            self.freqs = self.freqs // 2 + h
+            self._tables = None
+            self.cold = False
 
     def tables(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(lengths, codewords, decode LUTs) of the current code, built
         on the first call after an update."""
-        if self._tables is None:
-            self._tables = build_tables(self.freqs)
-        return self._tables
+        # fast path without the lock: _tables is only ever swapped
+        # atomically (None or a complete tuple), so a stale read costs
+        # at most one adaptation step, never a torn table
+        t = self._tables
+        if t is None:
+            with self._lock:
+                freqs = self.freqs
+            t = build_tables(freqs)
+            self._tables = t
+        return t

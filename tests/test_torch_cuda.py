@@ -12,6 +12,7 @@ import torch
 
 import hydrium_tpu_torch
 from hydrium_tpu_torch import EncodeStats
+from hydrium_tpu_torch import encoder as TE
 from hydrium_tpu_torch.jxl.tokcode import TokenCodec
 from hydrium_tpu_torch.ops import bitpack as TB
 from hydrium_tpu_torch.ops import constants as C
@@ -32,6 +33,18 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the H100)")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def warm_state(tmp_path, monkeypatch):
+    """As test_torch_e2e's fixture (which this file cannot import: it
+    runs where jax is absent): a cache path under tmp_path, no wide
+    hints, a codec already warm, so launch counts hold no bootstrap."""
+    codec = TokenCodec()
+    codec.update(np.full((10, 64), 50))
+    monkeypatch.setattr(TE, "_WARM_CACHE", str(tmp_path / "warm" / "warm.npz"))
+    monkeypatch.setattr(TE, "_SHARED_CODEC", codec)
+    monkeypatch.setattr(TE, "_WIDE_HINT", {})
 
 
 def _transport_inputs(rng, N, dev, max_tok=80):

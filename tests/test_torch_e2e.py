@@ -28,6 +28,8 @@ from hydrium_tpu.ops import pipeline as P
 from hydrium_tpu.ops import tables
 from hydrium_tpu.utils import djxl
 from hydrium_tpu_torch import EncodeStats, ImageMetadata
+from hydrium_tpu_torch import encoder as TE
+from hydrium_tpu_torch.jxl.tokcode import TokenCodec
 from hydrium_tpu_torch.ops import front as TF
 from hydrium_tpu_torch.ops import packed as TP
 from test_e2e import make_image
@@ -66,6 +68,14 @@ def jax_native_ready() -> bool:
 # it, here (the port builds its own under a lock of its own)
 jax_native_ready()
 
+# One intra-op thread for torch on the CPU, in every process that
+# collects this file (each test worker does).  Workers run side by side;
+# with an OpenMP team per worker as wide as the machine, the teams'
+# idle threads spin against each other and the port's small CPU tensors
+# take tens of times longer (three tiled tests: 28 s at one thread, over
+# 400 s at the default, six workers on eight cores).
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _VIEWS = {"tokens": np.int16, "residues": np.int32, "lf_res": np.int32}
 
@@ -94,6 +104,21 @@ def jax_front_tokens(front, pixels, height, width, presets, *, buf_h, buf_w,
 @pytest.fixture
 def jax_front(monkeypatch):
     monkeypatch.setattr(TF, "front_tokens", jax_front_tokens)
+
+
+@pytest.fixture(autouse=True)
+def warm_state(tmp_path, monkeypatch):
+    """The process-wide transport codec and wide hints, kept apart from
+    ~/.cache and from other tests: a cache path under tmp_path, no
+    hints, and a codec that is already warm (one flat histogram folded
+    in), so that dispatch counts hold no cold-start bootstrap.  A test
+    of the cold start calls TE.reset_warm_state() itself.  The port's
+    test files that make an Encoder import this fixture."""
+    codec = TokenCodec()
+    codec.update(np.full((10, 64), 50))
+    monkeypatch.setattr(TE, "_WARM_CACHE", str(tmp_path / "warm" / "warm.npz"))
+    monkeypatch.setattr(TE, "_SHARED_CODEC", codec)
+    monkeypatch.setattr(TE, "_WIDE_HINT", {})
 
 
 IMAGES = [(256, 256, "noise"), (100, 70, "smooth"), (300, 520, "noise"),
@@ -196,7 +221,7 @@ def test_scope_limits_raise():
             hydrium_tpu_torch.encode_image(img, device="cuda")
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     code = ("import sys, numpy as np, hydrium_tpu_torch\n"
             "img = np.random.default_rng(0).integers(0, 256, (40, 300, 3),"
             " dtype=np.uint8)\n"
@@ -206,7 +231,8 @@ def test_port_imports_no_jax():
             "m.startswith('jax.') or m.startswith('jaxlib'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO,
+               HYDRIUM_TORCH_WARM_CACHE=str(tmp_path / "warm.npz"))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

@@ -63,20 +63,30 @@ def test_scan_sees_imports_inside_functions(tmp_path):
         (1, "os"), (3, "hydrium_tpu"), (4, "jax"), (6, "hydrium_tpu_torch")]
 
 
-def test_cpu_encode_loads_neither_jax_nor_the_jax_package():
+def test_cpu_encode_loads_neither_jax_nor_the_jax_package(tmp_path):
+    """encode_image in both modes, then the CLI on a PFM it wrote."""
     code = ("import sys, numpy as np, hydrium_tpu_torch as H\n"
+            "from hydrium_tpu_torch import cli\n"
+            "from hydrium_tpu_torch.utils.pfm import write_pfm\n"
             "img = np.random.default_rng(0).integers(0, 256, (300, 520, 3),"
             " dtype=np.uint8)\n"
             "for shift in (-1, 0):\n"
             "    b = H.encode_image(img, shift, device='cpu')\n"
             "    assert b[:2] == b'\\xff\\x0a', b[:2]\n"
+            "write_pfm(sys.argv[1], (img / 255.0).astype(np.float32))\n"
+            "assert cli.main([sys.argv[1], sys.argv[2], '--device', 'cpu',"
+            " '--tile-size=0']) == 0\n"
+            "assert open(sys.argv[2], 'rb').read(2) == b'\\xff\\x0a'\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('hydrium_tpu', 'jax', "
             "'jaxlib'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               HYDRIUM_TORCH_WARM_CACHE=str(tmp_path / "warm.npz"))
+    res = subprocess.run([sys.executable, "-c", code,
+                          str(tmp_path / "in.pfm"), str(tmp_path / "o.jxl")],
+                         cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"

@@ -19,7 +19,8 @@ from hydrium_tpu_torch.ops import packed as TP
 from test_e2e import make_image
 # importing test_torch_e2e builds the JAX package's native plane under
 # its lock (jax_native_ready)
-from test_torch_e2e import _forced_ok, jax_front  # noqa: F401 (fixture)
+from test_torch_e2e import (_forced_ok, jax_front,  # noqa: F401 (fixtures)
+                            warm_state)
 
 
 def _tiles(img, th, tw, rows=None):
