@@ -53,7 +53,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    walls, the calling thread's blocked time (stage fetch_wait) and the
    stage seconds, with the card's name and power limit; and
    BufferedEncoder with a 1 MiB caller buffer over the one-frame encode:
-   the same bytes.
+   the same bytes;
+8. multi-device and multi-process: encode_image_sharded of the 4K image
+   over ["cuda:0"] and ["cuda:0", "cuda:0"], unfused and fused, each
+   equal to encode_image's bytes with the same front; two processes over
+   gloo on the one card (this script with --multihost-child), each
+   running encode_image_multihost on its half of the presets, on the 4K
+   image (fused front) and on an 8192x8192 u8 image synthesized per
+   strip in each process (scripts/config5_virtual.py's SyntheticImage,
+   unfused): process 0's bytes equal a single-process streaming
+   Encoder's; and dryrun_multichip(8) over eight entries of the card
+   inside device_trace, whose trace must hold the kernels: symbols
+   within 1e-4 of the same dry run on the CPU in this process.  Each
+   path's walls, dispatches and kernel launches (the children's summed)
+   are printed with the card's name and power limit.
 Each encode path's launch counts are zeroed just before it and read
 just after it.  A dispatch is a packed LF group, stacked chunk or edge
 tile, a wide retry, or the cold-start bootstrap of the transport codec
@@ -62,6 +75,11 @@ goes to a temporary directory, so the first encode starts cold.
 
 Prints one JSON line of kernel results, then as the last line
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --multihost-child ADDR RANK IMAGE FUSED OUT
+
+is one process of phase 8's two-process encode (IMAGE "4k" or "8192",
+FUSED 0 or 1; process 0 writes OUT); it prints one JSON line.
 """
 
 import ctypes.util
@@ -696,6 +714,289 @@ def front_flips(img: np.ndarray, dev) -> tuple:
     return flips, qg.numel() + lg.numel()
 
 
+class SyntheticImage:
+    """Lazy [size, size, 3] uint8 image: smooth band-limited base +
+    deterministic per-strip noise, computed on slice access.  Quacks
+    like the ndarray encode_image_multihost/Encoder need (shape, dtype,
+    2-D slicing) without ever materializing the frame."""
+
+    def __init__(self, size: int) -> None:
+        self.shape = (size, size, 3)
+        self.dtype = np.dtype(np.uint8)
+
+    def __getitem__(self, key):
+        ys, xs = key[0], key[1]
+        y0, y1, _ = ys.indices(self.shape[0])
+        x0, x1, _ = xs.indices(self.shape[1])
+        yy = np.arange(y0, y1, dtype=np.float32)[:, None, None]
+        xx = np.arange(x0, x1, dtype=np.float32)[None, :, None]
+        phase = np.array([0.0, 1.3, 2.1], np.float32)
+        base = 128 + 80 * np.sin(xx / 97.0 + phase) * np.cos(yy / 53.0)
+        # coordinate-hashed noise: deterministic for any slice geometry
+        # without generating anything outside the requested window
+        yu = np.arange(y0, y1, dtype=np.uint32)[:, None, None]
+        xu = np.arange(x0, x1, dtype=np.uint32)[None, :, None]
+        cu = np.arange(3, dtype=np.uint32)[None, None, :]
+        h = (yu * np.uint32(2654435761) ^ xu * np.uint32(0x9E3779B9)
+             ^ cu * np.uint32(0x85EBCA6B))
+        h ^= h >> np.uint32(15)
+        h *= np.uint32(0x2C1B3C6D)
+        h ^= h >> np.uint32(12)
+        noise = ((h >> np.uint32(8)) & np.uint32(31)).astype(np.float32) - 16.0
+        return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+def phase8_image(kind: str):
+    return make_4k() if kind == "4k" else SyntheticImage(8192)
+
+
+def kernel_counts(zero: bool = False) -> dict:
+    """The kernel wrappers' launch counts (set to 0 first when `zero`)."""
+    from hydrium_tpu_torch.ops.bitpack import pack_chunks
+    from hydrium_tpu_torch.ops.frontend import (frontend_groups,
+                                                frontend_tokens)
+    from hydrium_tpu_torch.ops.transport import transport_prep
+
+    fns = {"transport_prep": transport_prep, "chunk_pack": pack_chunks,
+           "frontend_groups": frontend_groups,
+           "frontend_tokens": frontend_tokens}
+    if zero:
+        for fn in fns.values():
+            fn.launches = 0
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+def multihost_child(addr: str, rank: str, kind: str, fused: str,
+                    out: str) -> int:
+    """One of phase 8's two processes: join the gloo group, encode its
+    presets' LF groups on the card, print its wall, counters and kernel
+    launches as one JSON line (process 0 also writes the file)."""
+    import torch
+
+    from hydrium_tpu_torch import EncodeStats
+    from hydrium_tpu_torch.parallel import multihost
+
+    if not torch.cuda.is_available():
+        print("chip_smoke child: CUDA is not available", file=sys.stderr)
+        return 2
+    import hydrium_tpu_torch as H
+
+    img = phase8_image(kind)
+    # first use of the card in this process (context, library load,
+    # first launches) on a small encode of its own, outside the timing
+    t0 = time.perf_counter()
+    H.encode_image(np.random.default_rng(64).integers(
+        0, 256, (64, 300, 3), dtype=np.uint8), device="cuda",
+        fused_front=fused == "1")
+    torch.cuda.synchronize()
+    first_use = time.perf_counter() - t0
+    multihost.initialize(addr, 2, int(rank))
+    try:
+        kernel_counts(zero=True)
+        stats = EncodeStats()
+        t0 = time.perf_counter()
+        data = multihost.encode_image_multihost(
+            img, device="cuda", stats=stats, fused_front=fused == "1",
+            spool_dir=os.path.dirname(out))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+    finally:
+        multihost.shutdown()
+    if data is not None:
+        with open(out, "wb") as f:
+            f.write(data)
+    print(json.dumps({"rank": int(rank), "wall_s": wall,
+                      "first_use_s": first_use,
+                      "counters": dict(stats.counters),
+                      "stages_s": {k: round(v, 4) for k, v in
+                                   stats.stage_seconds.items()},
+                      "launches": launches}), flush=True)
+    return 0
+
+
+def run_two_processes(kind: str, fused: bool, out: str,
+                      timeout: float = 300) -> list:
+    """Phase 8's two-process encode: this script twice as
+    --multihost-child, gloo on a free localhost port; returns the two
+    JSON records.  Both children are stopped whatever happens."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    scratch = os.path.dirname(out)
+    env = dict(os.environ, HYDRIUM_TORCH_WARM_CACHE=os.path.join(
+        scratch, "child_warm.npz"))
+    # output to files: a child blocked on a full pipe while the other
+    # waits for it in a collective would hang both
+    logs = [(os.path.join(scratch, f"{kind}_rank{r}.out"),
+             os.path.join(scratch, f"{kind}_rank{r}.err")) for r in range(2)]
+    procs = []
+    try:
+        for rank, (lo, le) in enumerate(logs):
+            with open(lo, "w") as fo, open(le, "w") as fe:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--multihost-child", addr, str(rank), kind,
+                     "1" if fused else "0", out],
+                    stdout=fo, stderr=fe, env=env))
+        for p in procs:
+            p.wait(timeout=timeout)
+        recs = []
+        for p, (lo, le) in zip(procs, logs):
+            if p.returncode != 0:
+                with open(le) as f:
+                    raise AssertionError(f"multihost child exit "
+                                         f"{p.returncode}:\n{f.read()[-3000:]}")
+            with open(lo) as f:
+                recs.append(json.loads(f.read().strip().splitlines()[-1]))
+        return recs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def streaming_encode(img, fused: bool):
+    """The single-process streaming Encoder on the card, LF groups in
+    raster order (strips of 2048 rows read from img).  Returns (bytes,
+    stage seconds)."""
+    import torch
+
+    import hydrium_tpu_torch as H
+
+    h, w = img.shape[:2]
+    enc = H.Encoder(H.ImageMetadata(width=w, height=h), device="cuda",
+                    streaming=True, fused_front=fused)
+    out = bytearray()
+    for ty in range((h + 2047) // 2048):
+        strip = img[ty * 2048:(ty + 1) * 2048, 0:w]
+        for tx in range((w + 2047) // 2048):
+            enc.send_tile(strip[:, tx * 2048:(tx + 1) * 2048], tx, ty)
+            out.extend(enc.take_output())
+    torch.cuda.synchronize()
+    return bytes(out), {k: round(v, 4) for k, v in
+                        enc.stats.stage_seconds.items()}
+
+
+def check_parallel(img, want: dict, scratch: str, smi: str) -> dict:
+    """Phase 8.  want: encode_image's bytes of img by front (False:
+    unfused, True: fused).  Returns {path: record}, each with its
+    launches."""
+    import torch
+
+    from hydrium_tpu_torch import EncodeStats
+    from hydrium_tpu_torch.parallel.driver import encode_image_sharded
+    from hydrium_tpu_torch.parallel.dryrun import dryrun_multichip
+    from hydrium_tpu_torch.utils.stats import device_trace
+
+    runs = {}
+    for entries in (1, 2):
+        for fused in (False, True):
+            name = f"sharded_{entries}" + ("_fused" if fused else "")
+            kernel_counts(zero=True)
+            stats = EncodeStats()
+            t0 = time.perf_counter()
+            got = encode_image_sharded(img, ["cuda:0"] * entries,
+                                       stats=stats, fused_front=fused)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_counts()
+            c = dict(stats.counters)
+            stages = {k: round(v, 4) for k, v in stats.stage_seconds.items()}
+            print(f"{name}: 3840x2160 over {entries} entries of cuda:0, "
+                  f"{'fused' if fused else 'unfused'} front: {len(got)} "
+                  f"bytes, {wall:.3f} s (cold codec) on {smi}, "
+                  f"{n_dispatches(c)} dispatches, counters {c}, launches "
+                  f"{launches}, stages {stages}", flush=True)
+            assert got == want[fused], f"{name}: bytes differ from " \
+                "encode_image's"
+            assert c.get("lfg_packed") == 4 and not c.get("lfg_fallback"), c
+            d = n_dispatches(c)
+            assert c.get("codec_bootstraps") == 1, c
+            assert launches["transport_prep"] == d, launches
+            assert launches["chunk_pack"] == 2 * d, launches
+            assert launches["frontend_tokens"] == (d if fused else 0)
+            assert launches["frontend_groups"] == 0, launches
+            runs[name] = {"wall_s": wall, "bytes": len(got), "counters": c,
+                          "stages_s": stages, "launches": launches}
+
+    for kind, fused, n_lfg in (("4k", True, 4), ("8192", False, 16)):
+        name = f"multihost_{kind}" + ("_fused" if fused else "")
+        out = os.path.join(scratch, name + ".jxl")
+        t0 = time.perf_counter()
+        recs = run_two_processes(kind, fused, out)
+        wall = time.perf_counter() - t0
+        with open(out, "rb") as f:
+            got = f.read()
+        t1 = time.perf_counter()
+        ref, ref_stages = ((want[fused], None) if kind == "4k"
+                           else streaming_encode(phase8_image(kind), fused))
+        t_ref = time.perf_counter() - t1
+        launches = {k: sum(r["launches"][k] for r in recs)
+                    for k in recs[0]["launches"]}
+        counters = [r["counters"] for r in recs]
+        print(f"{name}: two processes over gloo on cuda:0, "
+              f"{'fused' if fused else 'unfused'} front: {len(got)} bytes; "
+              f"wall with process start {wall:.3f} s, encode walls "
+              f"{[round(r['wall_s'], 4) for r in recs]} s (cold codec each;"
+              f" first use of the card before it "
+              f"{[round(r['first_use_s'], 4) for r in recs]} s)"
+              f" on {smi}; {sum(n_dispatches(c) for c in counters)} "
+              f"dispatches, counters {counters}, launches {launches}, "
+              f"stages by process {[r['stages_s'] for r in recs]}"
+              + ("" if kind == "4k" else
+                 f"; single-process streaming Encoder {t_ref:.3f} s, stages "
+                 f"{ref_stages}"),
+              flush=True)
+        assert got == ref, f"{name}: bytes differ from the single-process " \
+            "streaming Encoder's"
+        assert [c.get("lfg_packed") for c in counters] == [n_lfg // 2] * 2
+        assert not any(c.get("lfg_fallback") for c in counters), counters
+        d = sum(n_dispatches(c) for c in counters)
+        assert launches["transport_prep"] == d, launches
+        assert launches["chunk_pack"] == 2 * d, launches
+        assert launches["frontend_tokens"] == (d if fused else 0), launches
+        assert launches["frontend_groups"] == 0, launches
+        runs[name] = {"wall_s": wall, "encode_walls_s": [r["wall_s"]
+                                                         for r in recs],
+                      "bytes": len(got), "counters": counters,
+                      "first_use_s": [r["first_use_s"] for r in recs],
+                      "stages_s": [r["stages_s"] for r in recs],
+                      "launches": launches}
+        if kind != "4k":
+            runs[name]["single_process_s"] = t_ref
+            runs[name]["single_process_stages_s"] = ref_stages
+
+    cpu_syms, cpu_bytes = dryrun_multichip(8, ["cpu"] * 8)
+    kernel_counts(zero=True)
+    trace_dir = os.path.join(scratch, "trace")
+    t0 = time.perf_counter()
+    with device_trace(trace_dir) as trace:
+        syms, nbytes = dryrun_multichip(8, ["cuda:0"] * 8)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    with open(trace) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    traced = sorted(k for k in ("transport_prep_kernel", "chunk_pack_kernel")
+                    if any(k in n for n in names))
+    print(f"dryrun_multichip(8) on 8 entries of cuda:0: {syms} symbols, "
+          f"{nbytes} section bytes (CPU: {cpu_syms}, {cpu_bytes}), "
+          f"{wall:.3f} s inside device_trace; kernels in the trace "
+          f"{traced}; launches {launches}", flush=True)
+    assert abs(syms - cpu_syms) <= 1e-4 * cpu_syms, (syms, cpu_syms)
+    assert traced == ["chunk_pack_kernel", "transport_prep_kernel"], traced
+    assert launches["transport_prep"] == 8, launches
+    assert launches["chunk_pack"] == 16, launches
+    runs["dryrun_8"] = {"wall_s": wall, "symbols": syms,
+                        "section_bytes": nbytes, "cpu_symbols": cpu_syms,
+                        "cpu_section_bytes": cpu_bytes, "launches": launches}
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -708,10 +1009,6 @@ def main() -> int:
     from hydrium_tpu_torch import EncodeStats
     from hydrium_tpu_torch import encoder as torch_encoder
     from hydrium_tpu_torch.ops import _kernels
-    from hydrium_tpu_torch.ops.bitpack import pack_chunks
-    from hydrium_tpu_torch.ops.frontend import (frontend_groups,
-                                                frontend_tokens)
-    from hydrium_tpu_torch.ops.transport import transport_prep
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -738,26 +1035,14 @@ def main() -> int:
     results = check_kernels(dev)
     results.extend(check_frontend(img, dev))
 
-    def zero_counts():
-        transport_prep.launches = 0
-        pack_chunks.launches = 0
-        frontend_groups.launches = 0
-        frontend_tokens.launches = 0
-
-    def read_counts():
-        return {"transport_prep": transport_prep.launches,
-                "chunk_pack": pack_chunks.launches,
-                "frontend_groups": frontend_groups.launches,
-                "frontend_tokens": frontend_tokens.launches}
-
     # phase 4: one-frame mode
-    zero_counts()
+    kernel_counts(zero=True)
     stats = EncodeStats()
     t0 = time.perf_counter()
     data = hydrium_tpu_torch.encode_image(img, device="cuda", stats=stats)
     torch.cuda.synchronize()
     t_cold = time.perf_counter() - t0
-    launches = read_counts()
+    launches = kernel_counts()
     c = stats.counters
     print(f"encode 3840x2160 u8 (cold): {len(data)} bytes, {t_cold:.3f} s, "
           f"counters {dict(c)}, launches {launches}", flush=True)
@@ -784,13 +1069,13 @@ def main() -> int:
           flush=True)
 
     # the same one-frame encode with the fused front, for its launches
-    zero_counts()
+    kernel_counts(zero=True)
     f_stats = EncodeStats()
     fused_data = hydrium_tpu_torch.encode_image(img, device="cuda",
                                                 stats=f_stats,
                                                 fused_front=True)
     torch.cuda.synchronize()
-    fused_launches = read_counts()
+    fused_launches = kernel_counts()
     fc = f_stats.counters
     print(f"encode 3840x2160 u8, fused front: {len(fused_data)} bytes, "
           f"counters {dict(fc)}, launches {fused_launches}", flush=True)
@@ -823,12 +1108,12 @@ def main() -> int:
     n_edge = (-(-img.shape[0] // TILE) * -(-img.shape[1] // TILE)) - n_full
     k_stack = 4096 // TILE
     n_chunks = -(-n_full // k_stack)   # rows are full: runs span rows
-    zero_counts()
+    kernel_counts(zero=True)
     t_stats = EncodeStats()
     t0 = time.perf_counter()
     tiled = encode_tiled(img, True, t_stats)
     t_tiled_cold = time.perf_counter() - t0
-    tiled_launches = read_counts()
+    tiled_launches = kernel_counts()
     tc = t_stats.counters
     dispatches = n_dispatches(tc)
     print(f"tiled 3840x2160 u8, 256^2 tiles, fused front (cold): "
@@ -852,12 +1137,12 @@ def main() -> int:
     print(f"tiled (warm, fused front): {t_tiled_warm:.3f} s, "
           f"{mpix / t_tiled_warm:.2f} Mpix/s on {smi}; stages "
           f"{tiled_stages}", flush=True)
-    zero_counts()
+    kernel_counts(zero=True)
     tu_stats = EncodeStats()
     t0 = time.perf_counter()
     tiled_unfused = encode_tiled(img, False, tu_stats)
     t_tiled_unfused = time.perf_counter() - t0
-    unfused_launches = read_counts()
+    unfused_launches = kernel_counts()
     assert tiled_unfused[:2] == b"\xff\x0a"
     assert tu_stats.counters.get("lfg_fallback", 0) == 0, tu_stats.counters
     assert unfused_launches["frontend_groups"] == unfused_launches[
@@ -894,12 +1179,12 @@ def main() -> int:
             ("cli_pfm_linear_fused", pfm, ["--linear"], img_f32, True, -1,
              True, 1)):
         out_path = os.path.join(scratch.name, name + ".jxl")
-        zero_counts()
+        kernel_counts(zero=True)
         t0 = time.perf_counter()
         rc, cc, stg = run_cli([src, out_path] + flags, fused)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got_launches = read_counts()
+        got_launches = kernel_counts()
         with open(out_path, "rb") as f:
             got = f.read()
         want = hydrium_tpu_torch.encode_image(
@@ -968,6 +1253,10 @@ def main() -> int:
     assert be.finished and bytes(pushed) == data, "BufferedEncoder bytes"
     print(f"BufferedEncoder, 1 MiB buffer: {swaps} swaps, {len(pushed)} "
           f"bytes, equal to encode_image's", flush=True)
+
+    # phase 8: multi-device and multi-process
+    parallel = check_parallel(img, {False: data, True: fused_data},
+                              scratch.name, smi)
     scratch.cleanup()
 
     # "launches" is the tiled run with the fused front, the main path:
@@ -978,6 +1267,7 @@ def main() -> int:
     paths = {"one_frame": launches, "one_frame_fused": fused_launches,
              "tiled_fused": tiled_launches, "tiled": unfused_launches}
     paths.update({k: v["launches"] for k, v in cli_runs.items()})
+    paths.update({k: v["launches"] for k, v in parallel.items()})
     for r in results:
         r["launches"] = tiled_launches[r["name"]]
         r["on_main_path"] = r["name"] != "frontend_groups"
@@ -991,7 +1281,7 @@ def main() -> int:
         "mpix_per_s": mpix / t_tiled_warm, "stages_s": tiled_stages,
         "unfused_warm_s": t_tiled_unfused, "chunks": n_chunks,
         "edge_tiles": n_edge, "counters": dict(tc)}, "cli": cli_runs,
-        "overlap": overlap}))
+        "overlap": overlap, "parallel": parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -999,4 +1289,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(multihost_child(*sys.argv[2:7]))
     sys.exit(main())

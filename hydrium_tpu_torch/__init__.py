@@ -10,9 +10,9 @@ frame assembly in `encoder.py`).
 It covers the packed encode path in one-frame and tiled mode: `Encoder`
 (send_tile, send_tile_batch), `BufferedEncoder` (caller-owned output
 buffers) and `encode_image`, with hand-written CUDA kernels for the
-fused front, transport prep and chunk packing (`ops/`, `csrc/`), and the
+fused front, transport prep and chunk packing (`ops/`, `csrc/`), the
 command line (`python -m hydrium_tpu_torch.cli`, PNG or PFM in, .jxl
-out).
+out), and multi-device and multi-process encodes (`parallel/`).
 """
 
 from .config import (HYD_FLOAT32, HYD_UINT8, HYD_UINT16, ImageMetadata,

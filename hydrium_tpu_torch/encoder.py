@@ -37,6 +37,7 @@ payload size, never output bytes.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -161,6 +162,15 @@ def _fetch_stream(device: torch.device):
     return s
 
 
+def _current(device: torch.device):
+    """Make `device` the current card while a dispatch enqueues: the
+    kernels launch on the runtime's current device, which must own the
+    stream they are given (a no-op on the CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 class _HostCopy:
     """A device tensor on its way to the host.  On a card: a
     non-blocking copy on the current stream into a pinned buffer, and an
@@ -239,7 +249,7 @@ class _TorchDispatch:
         self.tok_lut = lut[:self.tok_classes]
         self.lf_lut = lut[LF_CLASS]
         A = packed_aux_len(self.buf_h, self.buf_w)
-        with _DISPATCH_LOCK:
+        with _DISPATCH_LOCK, _current(self.device):
             self._combined = _packed.encode_lfg_packed(
                 self.front, self.px, self.lfg.height, self.lfg.width,
                 self.presets,
@@ -339,7 +349,7 @@ class _TorchDispatch:
         """The unpacked path (a token outside the transport alphabet or
         residues beyond even the wide budget), still on the device."""
         lfg = self.lfg
-        with _DISPATCH_LOCK:
+        with _DISPATCH_LOCK, _current(self.device):
             out = _front.encode_lfg(
                 self.front, self.px, lfg.height, lfg.width, self.presets,
                 buf_h=self.buf_h, buf_w=self.buf_w,
@@ -490,7 +500,7 @@ class Encoder:
         self._tb_run = []            # pending cross-call stacked run
         self._tb_run_fmt = None      # the pending run's sample format
         self._tb_flush_pending = False
-        self._codec = _shared_codec()
+        self._codec = self._new_codec()
         self.max_inflight = int(os.environ.get("HYDRIUM_INFLIGHT", "3"))
         self._pending = deque()      # one-frame drain futures, oldest first
         self._front = _front.FrontEnd.from_tables().to(self.device)
@@ -629,6 +639,9 @@ class Encoder:
         self._icc_payload = headers.mangle_icc_profile(icc_data)
 
     # -- common ---------------------------------------------------------
+
+    def _new_codec(self) -> TokenCodec:
+        return _shared_codec()
 
     def _dispatch(self, pixels, fmt: str, lfg, preset: int, hf,
                   lf_seg_vb: int = 0) -> _TorchDispatch:

@@ -1,12 +1,14 @@
 """Per-encode observability: stage timers, section sizes, throughput.
 
-The port's copy of hydrium_tpu/utils/stats.py without its jax profiler
-hook.  The reference has none of this beyond stderr prints; here every
-encode can carry an EncodeStats that stages report into."""
+The port's copy of hydrium_tpu/utils/stats.py, with its profiler hook
+(device_trace) over torch.profiler.  The reference has none of this
+beyond stderr prints; here every encode can carry an EncodeStats that
+stages report into."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
@@ -97,3 +99,29 @@ class EncodeStats:
             lines.append(f"  last_error: {self.last_error}")
         return "\n".join(lines)
 
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]):
+    """Wrap a region in a torch.profiler trace when log_dir is given
+    (a no-op otherwise): CPU activity always, CUDA activity where a card
+    is present.  The Chrome trace is written to
+    log_dir/trace_<pid>_<n>.json when the region ends; the context
+    yields that path (None when off)."""
+    if not log_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    n = 0
+    while os.path.exists(path := os.path.join(
+            log_dir, f"trace_{os.getpid()}_{n}.json")):
+        n += 1
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(path)

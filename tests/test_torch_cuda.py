@@ -415,3 +415,31 @@ def test_card_tiled_encode_equals_cpu_encode_with_shared_front(cuda,
     assert got == want
     # rows of 4 full tiles and one edge tile, the last row all edges
     assert stats.counters["lfg_packed"] == 2 + 2 + 5
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_card_sharded_over_two_entries_equals_encode_image(cuda, fused):
+    """Three LF groups (one of them 4 columns wide) over two entries of
+    the card: encode_image's bytes on the card, with the same front."""
+    from hydrium_tpu_torch.parallel.driver import encode_image_sharded
+
+    img = np.random.default_rng(6).integers(0, 256, (300, 4100, 3),
+                                            dtype=np.uint8)
+    want = hydrium_tpu_torch.encode_image(img, device="cuda",
+                                          fused_front=fused)
+    stats = EncodeStats()
+    got = encode_image_sharded(img, ["cuda:0", "cuda:0"], stats=stats,
+                               fused_front=fused)
+    assert got == want
+    assert stats.counters["lfg_packed"] == 3
+
+
+def test_card_dryrun_multichip(cuda):
+    """n = 8 on eight entries of the card: the symbol count of the same
+    dry run on the CPU, within the front's flip bound."""
+    from hydrium_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    want, _ = dryrun_multichip(8, ["cpu"] * 8)
+    syms, nbytes = dryrun_multichip(8, ["cuda:0"] * 8)
+    assert abs(syms - want) <= FLIP_TOL * want
+    assert nbytes > 0

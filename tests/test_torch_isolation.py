@@ -1,7 +1,8 @@
-"""The port stands alone: no file of hydrium_tpu_torch, nor chip_smoke.py
-or the profile_*.py scripts, imports the JAX package or jax; a CPU encode in
-both modes loads neither; and the constants it copied equal the JAX
-package's."""
+"""The port stands alone: no file of hydrium_tpu_torch (its parallel/
+modules included), nor chip_smoke.py or the profile_*.py scripts, imports
+the JAX package or jax; a CPU encode in both modes, a sharded and a
+one-process multi-process encode load neither; and the constants it
+copied equal the JAX package's."""
 
 import ast
 import os
@@ -87,6 +88,38 @@ def test_cpu_encode_loads_neither_jax_nor_the_jax_package(tmp_path):
     res = subprocess.run([sys.executable, "-c", code,
                           str(tmp_path / "in.pfm"), str(tmp_path / "o.jxl")],
                          cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_parallel_modules_are_scanned():
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for mod in ("multihost", "driver", "shard", "dryrun"):
+        assert f"hydrium_tpu_torch/parallel/{mod}.py" in names, mod
+
+
+def test_parallel_encodes_load_neither_jax_nor_the_jax_package(tmp_path):
+    """encode_image_sharded over two CPU entries and a one-process
+    encode_image_multihost."""
+    code = ("import sys, numpy as np\n"
+            "from hydrium_tpu_torch.parallel.driver import "
+            "encode_image_sharded\n"
+            "from hydrium_tpu_torch.parallel.multihost import "
+            "encode_image_multihost\n"
+            "img = np.random.default_rng(0).integers(0, 256, (40, 2100, 3),"
+            " dtype=np.uint8)\n"
+            "a = encode_image_sharded(img, ['cpu', 'cpu'])\n"
+            "b = encode_image_multihost(img, device='cpu')\n"
+            "assert a == b and a[:2] == b'\\xff\\x0a', a[:2]\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('hydrium_tpu', 'jax', "
+            "'jaxlib'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+               HYDRIUM_TORCH_WARM_CACHE=str(tmp_path / "warm.npz"))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
