@@ -66,7 +66,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    inside device_trace, whose trace must hold the kernels: symbols
    within 1e-4 of the same dry run on the CPU in this process.  Each
    path's walls, dispatches and kernel launches (the children's summed)
-   are printed with the card's name and power limit.
+   are printed with the card's name and power limit;
+9. the conformance profile (the numpy plane, on the host): a 1000x700
+   u8 image made with integer arithmetic from a seed
+   (conformance_image) encoded with encode_image(...,
+   profile="conformance") one-frame, tiled with shift 0, as u16
+   (257 * u8) and as f32 with linear_light; each file's sha256 must
+   equal the digest pinned in CONFORMANCE_SHA256, which a tier-1 test
+   (tests/test_torch_conformance.py) derives from hydrium_tpu's
+   backend="numpy" on the same inputs.  Then hydrium_tpu_torch.cli.main
+   with --profile conformance on the image written as a PNG and with
+   --backend numpy --linear on the f32 image written as a PFM: each
+   file equal to the in-process one.  No device use: every kernel
+   counter reads 0 across the phase and torch.cuda.memory_allocated()
+   is unchanged.  The phase's host walls are printed with the card's
+   name and power limit.
 Each encode path's launch counts are zeroed just before it and read
 just after it.  A dispatch is a packed LF group, stacked chunk or edge
 tile, a wide retry, or the cold-start bootstrap of the transport codec
@@ -83,6 +97,7 @@ FUSED 0 or 1; process 0 writes OUT); it prints one JSON line.
 """
 
 import ctypes.util
+import hashlib
 import json
 import os
 import statistics
@@ -746,6 +761,102 @@ class SyntheticImage:
         return np.clip(base + noise, 0, 255).astype(np.uint8)
 
 
+# sha256 of phase 9's conformance files (conformance_inputs); the
+# numpy plane is elementwise float32 numpy, so these hold on any machine,
+# and tests/test_torch_conformance.py holds hydrium_tpu's backend="numpy"
+# to them
+CONFORMANCE_SHA256 = {
+    "one_frame":
+        "6ca0e85116f1a404c12b1899a02324f7fee0bb1930226b279e1953bbd465a1d2",
+    "tiled_0":
+        "eb73fc470f296b7b0dd955035e146ed5fb432008159fb3e21418cf4c4cf7ce19",
+    # the u8 file: the numpy plane's input LUTs map v and 257 * v to
+    # the same 16-bit linear sample
+    "u16":
+        "6ca0e85116f1a404c12b1899a02324f7fee0bb1930226b279e1953bbd465a1d2",
+    "f32_linear":
+        "150cea9565873bc98dc5b84f8e934cf3c2399e517349513e3c9042635d0aa3d4",
+}
+
+
+def conformance_image(width: int = 1000, height: int = 700,
+                      seed: int = 0) -> np.ndarray:
+    """[height, width, 3] u8: a diagonal gradient plus hashed noise in
+    [0, 64), in integer arithmetic only, so that every machine makes the
+    same pixels from the same seed."""
+    yu = np.arange(height, dtype=np.uint32)[:, None, None]
+    xu = np.arange(width, dtype=np.uint32)[None, :, None]
+    cu = np.arange(3, dtype=np.uint32)[None, None, :]
+    grad = (xu * np.uint32(128) // np.uint32(width)
+            + yu * np.uint32(48) // np.uint32(height) + cu * np.uint32(8))
+    h = (yu * np.uint32(2654435761) ^ xu * np.uint32(0x9E3779B9)
+         ^ cu * np.uint32(0x85EBCA6B)
+         ^ np.uint32((seed * 0x27D4EB2F + 1) & 0xFFFFFFFF))
+    h ^= h >> np.uint32(15)
+    h *= np.uint32(0x2C1B3C6D)
+    h ^= h >> np.uint32(12)
+    return (grad + ((h >> np.uint32(8)) & np.uint32(63))).astype(np.uint8)
+
+
+def conformance_inputs():
+    """(name, pixels, tile_size_shift, linear_light) of phase 9's four
+    encodes, each keyed as in CONFORMANCE_SHA256."""
+    img = conformance_image()
+    return [("one_frame", img, -1, False),
+            ("tiled_0", img, 0, False),
+            ("u16", img.astype(np.uint16) * np.uint16(257), -1, False),
+            ("f32_linear", img.astype(np.float32) / np.float32(255), -1,
+             True)]
+
+
+def check_conformance(scratch: str, smi: str) -> dict:
+    """Phase 9: the conformance profile's files, in process and through
+    the CLI, against the pinned digests, with no device use."""
+    import torch
+
+    import hydrium_tpu_torch as H
+    from hydrium_tpu_torch import cli
+
+    inputs = conformance_inputs()
+    kernel_counts(zero=True)
+    mem0 = torch.cuda.memory_allocated()
+    files, walls = {}, {}
+    for name, px, shift, linear in inputs:
+        t0 = time.perf_counter()
+        files[name] = H.encode_image(px, shift, linear_light=linear,
+                                     profile="conformance")
+        walls[name] = time.perf_counter() - t0
+        digest = hashlib.sha256(files[name]).hexdigest()
+        assert digest == CONFORMANCE_SHA256[name], (name, digest)
+    png = os.path.join(scratch, "conformance.png")
+    pfm = os.path.join(scratch, "conformance.pfm")
+    write_png(png, inputs[0][1])
+    write_pfm(pfm, inputs[3][1])
+    for name, src, flags, want in (
+            ("cli_png_profile", png, ["--profile", "conformance"],
+             "one_frame"),
+            ("cli_pfm_backend_linear", pfm, ["--backend", "numpy",
+                                             "--linear"], "f32_linear")):
+        out = os.path.join(scratch, name + ".jxl")
+        t0 = time.perf_counter()
+        rc = cli.main([src, out] + flags)
+        walls[name] = time.perf_counter() - t0
+        assert rc == 0, (name, rc)
+        with open(out, "rb") as f:
+            assert f.read() == files[want], f"{name}: bytes differ"
+    launches = kernel_counts()
+    assert not any(launches.values()), launches
+    mem1 = torch.cuda.memory_allocated()
+    assert mem1 == mem0, (mem0, mem1)
+    print(f"conformance profile (numpy plane, host walls) on {smi}: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f"; sizes { {k: len(v) for k, v in files.items()} }, digests "
+          f"pinned, CLI files equal, launches {launches}, "
+          f"memory_allocated {mem0} -> {mem1}", flush=True)
+    return {"host_walls_s": walls, "launches": launches,
+            "bytes": {k: len(v) for k, v in files.items()}}
+
+
 def phase8_image(kind: str):
     return make_4k() if kind == "4k" else SyntheticImage(8192)
 
@@ -1257,6 +1368,9 @@ def main() -> int:
     # phase 8: multi-device and multi-process
     parallel = check_parallel(img, {False: data, True: fused_data},
                               scratch.name, smi)
+
+    # phase 9: the conformance profile, which launches no kernel
+    conformance = check_conformance(scratch.name, smi)
     scratch.cleanup()
 
     # "launches" is the tiled run with the fused front, the main path:
@@ -1268,6 +1382,7 @@ def main() -> int:
              "tiled_fused": tiled_launches, "tiled": unfused_launches}
     paths.update({k: v["launches"] for k, v in cli_runs.items()})
     paths.update({k: v["launches"] for k, v in parallel.items()})
+    paths["conformance"] = conformance["launches"]
     for r in results:
         r["launches"] = tiled_launches[r["name"]]
         r["on_main_path"] = r["name"] != "frontend_groups"
@@ -1281,7 +1396,8 @@ def main() -> int:
         "mpix_per_s": mpix / t_tiled_warm, "stages_s": tiled_stages,
         "unfused_warm_s": t_tiled_unfused, "chunks": n_chunks,
         "edge_tiles": n_edge, "counters": dict(tc)}, "cli": cli_runs,
-        "overlap": overlap, "parallel": parallel}))
+        "overlap": overlap, "parallel": parallel,
+        "conformance": conformance}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,6 +13,12 @@ buffers) and `encode_image`, with hand-written CUDA kernels for the
 fused front, transport prep and chunk packing (`ops/`, `csrc/`), the
 command line (`python -m hydrium_tpu_torch.cli`, PNG or PFM in, .jxl
 out), and multi-device and multi-process encodes (`parallel/`).
+
+Two math planes, chosen by `backend=` or `profile=` (`models/`): the
+device plane ("torch", profile "fast", the default) and the conformance
+plane ("numpy", profile "conformance"; `ops/reference.py`,
+`ops/hf_tokens.py`), byte-identical to hydrium_tpu's backend="numpy".
+The conformance plane runs on the host alone and needs no card.
 """
 
 from .config import (HYD_FLOAT32, HYD_UINT8, HYD_UINT16, ImageMetadata,

@@ -5,10 +5,13 @@
 The flags of hydrium_tpu.cli (which are the reference CLI's,
 src/hydrium.c:27-43): --one-frame, --tile-size=N, --pfm, --png,
 --linear, --tag-icc-from=F, --verify (decode the output with libjxl and
-report PSNR), --stats, --profile.  In place of --backend {jax,numpy} it
-takes --device {cuda,cpu}: the card unless the caller names the CPU, and
-an error when the card is missing.  --profile conformance (the numpy
-plane of the JAX package) is not ported and exits with an error.
+report PSNR), --stats, --profile {fast,conformance} and --backend
+{torch,numpy}, which overrides --profile (hydrium_tpu.cli's takes
+{jax,numpy}).  --device {cuda,cpu} places the device plane: the card
+unless the caller names the CPU, and an error when the card is missing.
+The conformance profile (--profile conformance or --backend numpy) is
+the numpy plane, byte-identical to hydrium_tpu.cli's: it runs on the
+host, ignores --device and needs no card.
 """
 
 from __future__ import annotations
@@ -124,12 +127,14 @@ def main(argv=None) -> int:
     p.add_argument("--tag-icc-from", metavar="FILE.icc", default=None,
                    help="tag output with this ICC profile (one-frame only)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="device of the math plane (default: cuda; fails "
-                        "without a card)")
+                   help="device of the torch plane (default: cuda; fails "
+                        "without a card; the numpy plane ignores it)")
+    p.add_argument("--backend", choices=("torch", "numpy"), default=None,
+                   help="math backend (overrides --profile)")
     p.add_argument("--profile", choices=("fast", "conformance"),
                    default="fast",
-                   help="encoder profile (fast: the device plane; "
-                        "conformance is not ported)")
+                   help="encoder profile (fast: the torch device plane; "
+                        "conformance: the numpy plane, on the host)")
     p.add_argument("--verify", action="store_true",
                    help="decode the output with libjxl and report PSNR")
     p.add_argument("--stats", action="store_true",
@@ -143,10 +148,6 @@ def main(argv=None) -> int:
     tile_shift = args.tile_size if args.tile_size is not None else -1
     if args.tag_icc_from and tile_shift >= 0:
         p.error("--tag-icc-from requires one-frame mode")
-    if args.profile == "conformance":
-        p.error("--profile conformance (the numpy plane) is not ported to "
-                "hydrium_tpu_torch yet; use python -m hydrium_tpu.cli "
-                "--profile conformance")
 
     is_pfm = args.pfm or (not args.png and args.input.endswith(".pfm"))
     reader = _open_input(args.input, is_pfm)
@@ -171,7 +172,9 @@ def main(argv=None) -> int:
 
         spool_ctx = tempfile.TemporaryDirectory(prefix="hydrium_spool_")
         spool_dir = spool_ctx.name
-    enc = Encoder(meta, device=args.device, spool_dir=spool_dir)
+    enc = Encoder(meta, device=args.device, backend=args.backend,
+                  profile=None if args.backend else args.profile,
+                  spool_dir=spool_dir)
     if args.tag_icc_from:
         with open(args.tag_icc_from, "rb") as f:
             enc.set_suggested_icc_profile(f.read())

@@ -1,7 +1,18 @@
-"""Streaming encoder on a PyTorch device, in one-frame and tiled mode.
+"""Streaming encoder on a PyTorch device or on the host's numpy plane,
+in one-frame and tiled mode.
 
-The device half of hydrium_tpu's jax backend, ported: each LF group (in
-tiled mode: each tile, or a stack of full-size tiles) runs the packed
+Two math planes, as hydrium_tpu has (Encoder(backend=...) or
+Encoder(profile=...)):
+- "torch" (profile "fast", the default): the device plane below;
+- "numpy" (profile "conformance"): the fixed-point/LUT twin of the
+  reference encoder (ops/reference.py, ops/hf_tokens.py), byte-identical
+  to hydrium_tpu's backend="numpy".  It runs on the host alone: no
+  device, no codec, no worker threads; it uses the native serialization
+  plane when that builds and its pure-Python twin when it does not.
+
+The device plane is the device half of hydrium_tpu's jax backend,
+ported: each LF group (in tiled mode: each tile, or a stack of
+full-size tiles) runs the packed
 pipeline (ops/packed.py) on the device, the host copies back the aux
 prefix and then exactly the stream words it needs, and the port's own
 host plane (host.py's payload parser, the C++ walker, ANS, frame/TOC
@@ -12,9 +23,11 @@ backend="jax"'s.
 
 Preserves the reference's streaming API contract (libhydrium.h:165-314):
 metadata first, then tiles in any order (`send_tile`), encoded bytes
-drained incrementally (`take_output`).  In one-frame mode every
-multi-group frame streams (per-preset ANS as each preset's last LF
-group arrives, sections spooled), as the jax backend does.
+drained incrementally (`take_output`).  In one-frame mode the device
+plane streams every multi-group frame (per-preset ANS as each preset's
+last LF group arrives, sections spooled), as the jax backend does; the
+numpy plane does so from Encoder.STREAMING_LFG_THRESHOLD LF groups up,
+as the numpy backend does.
 
 Dispatch and drain overlap.  A dispatch uploads its pixels through a
 pinned staging buffer, enqueues the packed pipeline and returns; its
@@ -27,9 +40,9 @@ With device="cpu" the same threads run with plain copies.  An error on
 a worker thread (a checksum mismatch) reaches the caller from
 send_tile, send_tile_batch or the call that finalizes.
 
-The native serialization plane is required (the packed path is where
-the device kernels are).  The transport code is one per process, shared
-by every Encoder and persisted when an encode finishes
+The device plane requires the native serialization plane (the packed
+path is where the device kernels are).  Its transport code is one per
+process, shared by every Encoder and persisted when an encode finishes
 (~/.cache/hydrium_tpu_torch/warm.npz, or $HYDRIUM_TORCH_WARM_CACHE); a
 cold one bootstraps from the first dispatch's histogram.  It changes
 payload size, never output bytes.
@@ -60,11 +73,36 @@ from .jxl.frame import (FrameGeometry, HFStream, LFGroupGeometry,
                         StreamingHFStream, TOC_TABLE, new_bitwriter,
                         write_frame_header, write_lf_global, write_lf_group)
 from .jxl.tokcode import LF_CLASS, TokenCodec
+from .models import get_profile
 from .ops import front as _front
 from .ops import packed as _packed
+from .ops import reference as np_ops
 from .ops.constants import packed_aux_len
 from .ops.frontend import default_fused
+from .ops.hf_tokens import tokenize_group
 from .utils.stats import EncodeStats
+
+# the math planes: the PyTorch device plane, and the numpy conformance
+# plane (hydrium_tpu's backend="numpy", whose default it is there)
+_BACKENDS = ("torch", "numpy")
+
+
+def _lfg_numpy(pixels, sample_fmt, linear_light, lfg, preset, hf):
+    """Numpy conformance backend: computes, tokenizes, and feeds the HF
+    stream; returns (lf_q, lf_res_packed_or_None)."""
+    xyb = np_ops.pixels_to_xyb(pixels, sample_fmt, linear_light)
+    xyb = np_ops.pad_to_blocks(xyb, lfg.height, lfg.width)
+    coeffs = np_ops.forward_dct(xyb)
+    zz = np_ops.zigzag_gather(coeffs)
+    hf_q, nz = np_ops.quantize_hf(zz)
+    lf_q = np_ops.quantize_lf(coeffs[:, :, 0, 0, :])
+    for gy, gx, gh, gw in lfg.groups():
+        gb = (slice(gy * 32, gy * 32 + ((gh + 7) >> 3)),
+              slice(gx * 32, gx * 32 + ((gw + 7) >> 3)))
+        tok = tokenize_group(hf_q[gb], nz[gb], preset, hf.cluster_map)
+        hf.add_group_padded(tok.tokens, tok.clusters, tok.residues,
+                            tok.residue_bits, tok.valid_len, preset)
+    return lf_q, None
 
 
 _SHARED_CODEC: Optional[TokenCodec] = None
@@ -462,32 +500,59 @@ class _FrameAssembler:
 
 
 class Encoder:
-    """Streaming encoder with hydrium's tile contract, whose device plane
-    is PyTorch on `device` ("cuda" needs a card; "cpu" runs the kernels'
-    plain twins).  The API is hydrium_tpu.Encoder's: send_tile,
-    send_tile_batch (tiled mode), take_output, iter_output, close and
-    set_suggested_icc_profile.  fused_front selects the fused front
-    (ops/frontend.py); None means as HYDRIUM_PALLAS says, which is off
-    unless it is "1".  streaming=False keeps a multi-group one-frame
-    encode in RAM and encodes its ANS sections at the end; spool_dir
-    spools a streaming encode's sections to disk.
+    """Streaming encoder with hydrium's tile contract.  The API is
+    hydrium_tpu.Encoder's: send_tile, send_tile_batch (tiled mode),
+    take_output, iter_output, close and set_suggested_icc_profile.
 
-    One-frame mode keeps up to HYDRIUM_INFLIGHT (default 3, read when
-    the Encoder is made) LF groups in flight behind the one being sent;
-    0 drains each before send_tile returns, and in tiled mode drains
-    each unit as soon as it is dispatched.  The transport codec is the
-    process's shared one (_shared_codec)."""
+    backend "torch" (the default) is the PyTorch device plane on
+    `device` ("cuda" needs a card; "cpu" runs the kernels' plain twins);
+    "numpy" is the conformance plane, byte-identical to hydrium_tpu's
+    backend="numpy", which ignores `device` and touches no device.
+    `profile` ("fast", "conformance" or a models.Profile) sets the
+    backend and overrides `backend`.  hydrium_tpu defaults to "numpy";
+    this package defaults to its device plane.  fused_front selects the
+    fused front (ops/frontend.py); None means as HYDRIUM_PALLAS says,
+    which is off unless it is "1".  streaming=False keeps a multi-group
+    one-frame encode in RAM and encodes its ANS sections at the end;
+    spool_dir spools a streaming encode's sections to disk.  Left to
+    itself, the device plane streams every multi-group one-frame encode,
+    the numpy plane from STREAMING_LFG_THRESHOLD LF groups up.
+
+    On the device plane, one-frame mode keeps up to HYDRIUM_INFLIGHT
+    (default 3, read when the Encoder is made) LF groups in flight
+    behind the one being sent; 0 drains each before send_tile returns,
+    and in tiled mode drains each unit as soon as it is dispatched.  The
+    transport codec is the process's shared one (_shared_codec)."""
+
+    # numpy-plane one-frame encodes with at least this many LF groups
+    # switch to the memory-bounded streaming HF path (per-preset eager
+    # ANS encoding)
+    STREAMING_LFG_THRESHOLD = int(
+        os.environ.get("HYDRIUM_STREAMING_THRESHOLD", "17"))
 
     def __init__(self, metadata: ImageMetadata, device="cuda",
                  streaming: Optional[bool] = None,
                  spool_dir: Optional[str] = None,
-                 fused_front: Optional[bool] = None) -> None:
+                 fused_front: Optional[bool] = None,
+                 backend: Optional[str] = None, profile=None) -> None:
         metadata.validate()
-        if not native.available():
+        if profile is not None:
+            if isinstance(profile, str):
+                profile = get_profile(profile)
+            backend = profile.backend
+        backend = "torch" if backend is None else backend
+        if backend not in _BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; choose 'torch' "
+                             "(the device plane) or 'numpy' (the "
+                             "conformance plane)")
+        self.backend = backend
+        on_device = backend == "torch"
+        if on_device and not native.available():
             raise RuntimeError("the native serialization plane "
                                "(csrc/host/serializer.cc) failed to build; "
                                "the packed device path needs it")
-        self.device = resolve_device(device)
+        # the numpy plane keeps the device out entirely
+        self.device = resolve_device(device) if on_device else None
         self.metadata = m = metadata
         self.spool_dir = spool_dir
         self.stats = EncodeStats()
@@ -500,18 +565,28 @@ class Encoder:
         self._tb_run = []            # pending cross-call stacked run
         self._tb_run_fmt = None      # the pending run's sample format
         self._tb_flush_pending = False
-        self._codec = self._new_codec()
+        self._codec = self._new_codec() if on_device else None
         self.max_inflight = int(os.environ.get("HYDRIUM_INFLIGHT", "3"))
         self._pending = deque()      # one-frame drain futures, oldest first
-        self._front = _front.FrontEnd.from_tables().to(self.device)
-        self.fused_front = (default_fused() if fused_front is None
-                            else bool(fused_front))
-        # the jax backend's rule: stream every multi-group one-frame
-        # encode (single-group frames use a 1-entry TOC with all sections
-        # concatenated, which only the at-finalize assembler writes)
+        self._front = (_front.FrontEnd.from_tables().to(self.device)
+                       if on_device else None)
+        self.fused_front = on_device and (default_fused() if fused_front
+                                          is None else bool(fused_front))
+        # single-group frames use a 1-entry TOC with all sections
+        # concatenated, which only the at-finalize assembler writes
         multi_group = ((m.width + 255) // 256) * ((m.height + 255) // 256) > 1
-        self.streaming = (m.one_frame and multi_group
-                          and (streaming is None or bool(streaming)))
+        if streaming is not None or on_device:
+            # the jax backend's rule: stream every multi-group one-frame
+            # encode unless told otherwise
+            self.streaming = (m.one_frame and multi_group
+                              and (streaming is None or bool(streaming)))
+        else:
+            # the numpy plane, the byte-parity twin of the reference,
+            # keeps the at-finalize scheme below the threshold
+            self.streaming = (m.one_frame and multi_group
+                              and native.available()
+                              and m.lfg_per_frame
+                              >= self.STREAMING_LFG_THRESHOLD)
         if m.one_frame:
             self._lfgs = [
                 LFGroupGeometry(
@@ -533,9 +608,10 @@ class Encoder:
             # C++ walk (ctypes releases the GIL) and, in streaming mode,
             # the preset's ANS encode, so the HF stream is touched by
             # this thread only, in dispatch order, until finalize
-            self._drain_exec = ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="hyd-drain")
-        else:
+            if on_device:
+                self._drain_exec = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="hyd-drain")
+        elif on_device:
             # made here, not at first use: units' fetch threads submit
             # renders (threads start at the first submit)
             self._tb_pool = ThreadPoolExecutor(
@@ -624,7 +700,8 @@ class Encoder:
         """The last frame is out: persist the warm state, stop the
         worker threads."""
         self._finished = True
-        _save_warm_state()
+        if self.backend == "torch":
+            _save_warm_state()
         self._stop_workers()
 
     def set_suggested_icc_profile(self, icc_data: Optional[bytes]) -> None:
@@ -742,7 +819,12 @@ class Encoder:
         hf = HFStream(1)
         self.stats.pixels += lfg.height * lfg.width
         with self.stats.stage("pipeline+transfer"):
-            lf_q, lf_res = self._dispatch(pixels, fmt, lfg, 0, hf).drain()
+            if self.backend == "numpy":
+                lf_q, lf_res = _lfg_numpy(pixels, fmt, m.linear_light, lfg,
+                                          0, hf)
+            else:
+                lf_q, lf_res = self._dispatch(pixels, fmt, lfg, 0,
+                                              hf).drain()
         self._emit_tiled_frame(lfg, last, lf_q, lf_res, hf)
 
     def send_tile_batch(self, entries,
@@ -758,11 +840,12 @@ class Encoder:
         unit's payload comes back on a thread of its own.  Frames are
         emitted strictly in send order, all but the last two units by
         the end of each call (HYDRIUM_INFLIGHT=1 keeps one; 0 drains
-        each unit as soon as it is dispatched)."""
+        each unit as soon as it is dispatched).  The numpy plane, and
+        one-frame mode, send the tiles one at a time."""
         if self._finished:
             raise RuntimeError("tile sent after the last tile")
         m = self.metadata
-        if m.one_frame:
+        if m.one_frame or self.backend != "torch":
             for pixels, tx, ty in entries:
                 self.send_tile(pixels, tx, ty, sample_fmt=sample_fmt)
             return
@@ -1002,11 +1085,22 @@ class Encoder:
 
     def _process_lfg(self, pixels, lfid: int, fmt: str) -> None:
         """Dispatch one LF group, start its fetch, queue its walk on the
-        drain worker, and drain the oldest groups beyond the window."""
+        drain worker, and drain the oldest groups beyond the window.  The
+        numpy plane encodes it here, in full, on the calling thread."""
         lfg = self._lfgs[lfid]
         self._sent.add(lfid)
         self._geo.lfg_arrival.append(lfid)
         preset = lfid // self._geo.lfg_per_preset
+        if self.backend == "numpy":
+            with self.stats.stage("pipeline+transfer"):
+                lf_q, lf_res = _lfg_numpy(pixels, fmt,
+                                          self.metadata.linear_light, lfg,
+                                          preset, self._hf)
+            self._write_lf(lf_q, lf_res)
+            if self.streaming:
+                with self.stats.stage("ans_encode"):
+                    self._hf.finish_lfg(preset)
+            return
         with self.stats.stage("dispatch"):
             handle = self._dispatch(pixels, fmt, lfg, preset, self._hf)
         handle.start_fetch()
@@ -1246,12 +1340,15 @@ def encode_image(image: np.ndarray, tile_size_shift: int = -1,
                  sample_fmt: Optional[SampleFormat] = None,
                  device="cuda",
                  stats: Optional[EncodeStats] = None,
-                 fused_front: Optional[bool] = None) -> bytes:
+                 fused_front: Optional[bool] = None,
+                 backend: Optional[str] = None, profile=None) -> bytes:
     """One-shot encode of an [H, W, 3] array to .jxl bytes on `device`:
     one frame (tile_size_shift -1) or tiles of 256 << tile_size_shift,
-    sent through send_tile_batch 16 at a time.  `stats`, when given,
-    receives the encode's stage times and counters (lfg_packed,
-    lfg_fallback, wide_retries, codec_bootstraps)."""
+    sent through send_tile_batch 16 at a time.  backend / profile choose
+    the math plane as Encoder's do (profile="conformance" is the numpy
+    plane, which ignores `device`).  `stats`, when given, receives the
+    encode's stage times and counters (lfg_packed, lfg_fallback,
+    wide_retries, codec_bootstraps)."""
     if sample_fmt is None:
         sample_fmt = {np.dtype(np.uint8): SampleFormat.UINT8,
                       np.dtype(np.uint16): SampleFormat.UINT16}.get(
@@ -1260,7 +1357,8 @@ def encode_image(image: np.ndarray, tile_size_shift: int = -1,
     meta = ImageMetadata(width=w, height=h, linear_light=linear_light,
                          tile_size_shift_x=tile_size_shift,
                          tile_size_shift_y=tile_size_shift)
-    enc = Encoder(meta, device=device, fused_front=fused_front)
+    enc = Encoder(meta, device=device, fused_front=fused_front,
+                  backend=backend, profile=profile)
     if stats is not None:
         enc.stats = stats
     out = bytearray()

@@ -105,6 +105,7 @@ LF_SHIFT = np.array([8192.0, 1024.0, 512.0], dtype=np.float32)
 # contexts (encoder.c:715,:724).
 CONTEXTS_PER_PRESET = 1485
 NZ_CONTEXTS = 111
+COEFF_CONTEXTS_PER_BLOCK_CTX = 458
 
 
 def hf_cluster_map(num_presets: int) -> np.ndarray:

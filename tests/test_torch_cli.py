@@ -60,6 +60,46 @@ def test_pfm_bytes_equal_encode_image_and_the_jax_cli(tmp_path, jax_front,
     assert got == ref.read_bytes()
 
 
+@pytest.mark.parametrize("mode,shift", [("--one-frame", -1),
+                                        ("--tile-size=0", 0)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_profile_conformance_png_equals_the_jax_cli(tmp_path, monkeypatch,
+                                                    mode, shift, dtype):
+    """The numpy plane on the default device ("cuda") with no card: the
+    JAX CLI's file, and encode_image's."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arr = make_image(300, 700, "smooth", seed=7)
+    if dtype == np.uint16:
+        arr = arr.astype(np.uint16) * 257 + 3
+    png = tmp_path / "in.png"
+    _write_png(png, arr)
+    out, ref = tmp_path / "out.jxl", tmp_path / "ref.jxl"
+    flags = [mode, "--profile", "conformance"]
+    assert cli.main([str(png), str(out)] + flags) == 0
+    assert jax_cli.main([str(png), str(ref)] + flags) == 0
+    got = out.read_bytes()
+    assert got == ref.read_bytes()
+    assert got == H.encode_image(arr, shift, profile="conformance")
+
+
+@pytest.mark.parametrize("flags", [["--linear"], ["--tile-size=1", "--linear"],
+                                   ["--profile", "fast", "--linear"]])
+def test_backend_numpy_pfm_equals_the_jax_cli(tmp_path, flags):
+    """--backend numpy overrides --profile, as in the JAX CLI."""
+    img = np.random.default_rng(11).random((300, 300, 3), dtype=np.float32)
+    pfm = tmp_path / "t.pfm"
+    write_pfm(str(pfm), img)
+    out, ref = tmp_path / "t.jxl", tmp_path / "ref.jxl"
+    argv = ["--backend", "numpy"] + flags
+    assert cli.main([str(pfm), str(out), "--device", "cuda"] + argv) == 0
+    assert jax_cli.main([str(pfm), str(ref)] + argv) == 0
+    shift = 1 if "--tile-size=1" in flags else -1
+    got = out.read_bytes()
+    assert got == ref.read_bytes()
+    assert got == H.encode_image(img, shift, linear_light=True,
+                                 backend="numpy")
+
+
 def test_pfm_flag_overrides_the_suffix(tmp_path):
     img = np.random.default_rng(10).random((40, 50, 3), dtype=np.float32)
     src = tmp_path / "image.bin"
@@ -140,11 +180,11 @@ def test_other_image_formats_fall_back_to_pil(tmp_path):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--profile", "conformance"], "numpy plane"),
+    (["--profile", "turbo"], "invalid choice"),
     (["--one-frame", "--tile-size=1"], "incompatible"),
     (["--tile-size=4"], "0-3"),
     (["--tile-size=0", "--tag-icc-from", "x.icc"], "one-frame"),
-    (["--backend", "jax"], "unrecognized")])
+    (["--backend", "jax"], "invalid choice")])
 def test_bad_arguments_exit_non_zero_with_a_message(tmp_path, capsys, argv,
                                                     message):
     png = tmp_path / "in.png"

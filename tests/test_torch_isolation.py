@@ -125,6 +125,61 @@ def test_parallel_encodes_load_neither_jax_nor_the_jax_package(tmp_path):
     assert res.stdout.strip() == "ok"
 
 
+def test_conformance_modules_are_scanned():
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for rel in ("models/__init__.py", "models/profiles.py",
+                "ops/hf_tokens.py", "ops/reference.py"):
+        assert f"hydrium_tpu_torch/{rel}" in names, rel
+
+
+def test_reference_copies_every_function_of_the_jax_package():
+    import inspect
+
+    from hydrium_tpu.ops import hf_tokens as jax_hf_tokens
+    from hydrium_tpu.ops import reference as jax_reference
+    from hydrium_tpu_torch.ops import hf_tokens, reference
+
+    for mine, theirs in ((reference, jax_reference),
+                         (hf_tokens, jax_hf_tokens)):
+        want = {n for n, v in vars(theirs).items()
+                if inspect.isfunction(v) and v.__module__ == theirs.__name__}
+        got = {n for n, v in vars(mine).items()
+               if inspect.isfunction(v) and v.__module__ == mine.__name__}
+        assert got == want, (mine.__name__, want ^ got)
+
+
+def test_conformance_encode_loads_neither_jax_nor_the_jax_package(tmp_path):
+    """The numpy plane in both modes and through the CLI: no jax, no
+    hydrium_tpu, and CUDA never initialized."""
+    code = ("import sys, numpy as np, torch, hydrium_tpu_torch as H\n"
+            "from hydrium_tpu_torch import cli\n"
+            "from hydrium_tpu_torch.utils.pfm import write_pfm\n"
+            "img = np.random.default_rng(0).integers(0, 256, (300, 520, 3),"
+            " dtype=np.uint8)\n"
+            "for shift in (-1, 0):\n"
+            "    b = H.encode_image(img, shift, profile='conformance')\n"
+            "    assert b[:2] == b'\\xff\\x0a', b[:2]\n"
+            "write_pfm(sys.argv[1], (img / 255.0).astype(np.float32))\n"
+            "assert cli.main([sys.argv[1], sys.argv[2], '--backend', 'numpy',"
+            " '--tile-size=0']) == 0\n"
+            "assert open(sys.argv[2], 'rb').read(2) == b'\\xff\\x0a'\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('hydrium_tpu', 'jax', "
+            "'jaxlib'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               HYDRIUM_TORCH_WARM_CACHE=str(tmp_path / "warm.npz"))
+    res = subprocess.run([sys.executable, "-c", code,
+                          str(tmp_path / "in.pfm"), str(tmp_path / "o.jxl")],
+                         cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+    assert not (tmp_path / "warm.npz").exists()
+
+
 def test_tables_equal_the_jax_package():
     names = [n for n in dir(tables)
              if n.isupper() and isinstance(getattr(tables, n),
