@@ -11,6 +11,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    stage) and chunk pack at one 2048x2048 LF group, one stacked tiled
    chunk and one edge tile, exactly equal, and transport prep also at a
    row count that HS does not divide and with one valid token >= 64;
+   chunk pack as the pair of a dispatch (tokens with fast or with wide
+   residues in one launch of pack_chunk_streams), each stream alone
+   through pack_chunks, and the pair with a chunk past ow*32 bits, an
+   all-zero chunk and an exactly full chunk in each stream;
    the fused front's two epilogues at one LF group (G = 64), one
    stacked tiled chunk (G = 16, u8 sRGB and f32 linear) and two edge
    tiles (G = 1, true extent inside a smaller upload): q/dc within a
@@ -23,7 +27,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    20), the time of one call between CUDA events with its host work
    (median of 20), the plain twin's, and the bound (bytes over 3.35
    TB/s or float32 operations, counted once from the kernel's SASS,
-   over 67 TFLOP/s, whichever is larger);
+   over 67 TFLOP/s, whichever is larger; a chunk-pack pair's bytes are
+   both streams' summed);
 4. one-frame mode: hydrium_tpu_torch.encode_image on a 3840x2160 u8
    image (noise + sinusoid, from a seed), one frame of four LF groups.
    Checks: all four LF groups packed, no fallback, each kernel launched
@@ -38,7 +43,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    fallback, each kernel launched exactly as often as the dispatches
    need, the signature, a
    byte-identical second encode, decode PSNR where libjxl loads; also
-   the warm time and launches with the unfused front;
+   the warm time and launches with the unfused front.  The sha256 of
+   the one-frame (both fronts) and tiled 4K files is printed, so two
+   commits' files can be compared;
 6. the command line on the card: the image written as a PNG (a zlib
    writer of a few lines) and a 1024x768 f32 PFM, then
    hydrium_tpu_torch.cli.main one-frame on the PNG (default front),
@@ -270,58 +277,122 @@ def _check_transport(name, args, hs, timed=True):
     return rec
 
 
+def _pack_edge_case(rng, dev, R: int, ch: int, ow: int, cap: int, p: float):
+    """R chunks drawn as _pack_case draws them, but chunk 0 past ow*32
+    bits (every field at over 32*ow/ch bits), chunk 1 of zero widths only
+    and chunk 2 of exactly ow*32 bits."""
+    import torch
+
+    widths = np.minimum(rng.geometric(p, (R, ch)), cap)
+    widths[rng.random((R, ch)) < 0.3] = 0
+    widths[0] = 32 * ow // ch + 1
+    widths[1] = 0
+    exact = np.full(ch, 32 * ow // ch)
+    exact[:32 * ow % ch] += 1
+    widths[2] = rng.permutation(exact)
+    widths = widths.reshape(-1).astype(np.int64)
+    vals = rng.integers(0, 1 << 32, R * ch, dtype=np.int64) & (
+        (1 << widths) - 1)
+    return (torch.as_tensor(vals.astype(np.uint32).view(np.int32),
+                            device=dev),
+            torch.as_tensor(widths.astype(np.int32), device=dev), ch, ow)
+
+
+def _pack_bytes(stream) -> int:
+    """Bytes chunk pack must move for one stream: 8 per field read, the
+    [R, ow] rows and R chunk_bits written."""
+    values, _nbits, ch, ow = stream
+    R = values.shape[0] // ch
+    return R * ch * 8 + R * ow * 4 + R * 4
+
+
+def _check_pack(name, streams, timed=True):
+    """Chunk pack on the card against its plain twin per stream, exactly
+    equal: two streams through pack_chunk_streams (one launch), one
+    through pack_chunks.  Returns the case's record."""
+    import torch
+
+    from hydrium_tpu_torch.ops.bitpack import (pack_chunk_streams,
+                                               pack_chunks,
+                                               pack_chunks_plain)
+
+    if len(streams) == 2:
+        run = lambda: pack_chunk_streams(*streams)
+    else:
+        run = lambda: (pack_chunks(*streams[0]),)
+    plain = lambda: tuple(pack_chunks_plain(*st) for st in streams)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(got, want)):
+        for a, b, n in zip(g, w, ("chunks", "chunk_bits")):
+            if a.shape != b.shape or not torch.equal(a, b):
+                bad = int((a != b).sum().item())
+                raise AssertionError(f"chunk_pack {name} stream {k} {n}: "
+                                     f"{bad} mismatches")
+    rec = {"R": [st[0].shape[0] // st[2] for st in streams],
+           "ch": [st[2] for st in streams], "ow": [st[3] for st in streams],
+           "max_abs_err": max(int((a.long() - b.long()).abs().max())
+                              for g, w in zip(got, want)
+                              for a, b in zip(g, w))}
+    if not timed:
+        print(f"chunk_pack {name} R={rec['R']} ow={rec['ow']}: equal",
+              flush=True)
+        return rec
+    rec["ms"] = _time_ms(run)
+    rec["device_ms"] = _device_ms(run, "chunk_pack_streams_kernel")
+    rec["plain_ms"] = _time_ms(plain)
+    rec["bound_ms"], rec["bound_by"] = _bound_ms(
+        sum(_pack_bytes(st) for st in streams))
+    print(f"chunk_pack {name} R={rec['R']} ow={rec['ow']}: equal; device "
+          f"{rec['device_ms']:.4f} ms, per call host included "
+          f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+          f"({rec['bound_ms'] / rec['device_ms']:.0%}), plain "
+          f"{rec['plain_ms']:.4f} ms", flush=True)
+    return rec
+
+
 def check_kernels(dev):
     """Phase 3: transport prep and chunk pack vs their plain twins, exactly
     equal, at every main-path shape, and transport prep also where HS
-    does not divide N and with one valid token >= 64.  The top-level
-    times are the LF group's (one-frame mode); by_case holds all."""
-    import torch
-
+    does not divide N and with one valid token >= 64; chunk pack as the
+    pair of a dispatch (tokens with fast or wide residues, one launch),
+    each stream alone, and the pair with an overflowing, an all-zero and
+    an exactly full chunk in each stream.  The top-level times are the
+    LF group's (one-frame mode); by_case holds all."""
     from hydrium_tpu_torch.ops import constants as C
-    from hydrium_tpu_torch.ops.bitpack import pack_chunks, pack_chunks_plain
 
     HS = C.HIST_SAMPLE_STRIDE
     rng = np.random.default_rng(2160)
-    tp = {}
-    pk, pk_err = {}, 0
+    tp, pk = {}, {}
+    res_geometries = {"fast": (C.RES_OW_FAST, C.RES_CAP_FAST, 0.4, 0),
+                      "wide": (C.RES_OW_WIDE, C.RES_CAP_WIDE, 0.2, 2)}
     for shape, G in KERNEL_SHAPES.items():
         N = G * 3072
         tp[shape] = _check_transport(shape, _transport_case(rng, dev, N), HS)
 
         M = N * 64
-        cases = [
-            ("tokens", M // C.TOK_CHUNK, C.TOK_CHUNK, C.TOK_OW,
-             C.TOK_MAX_LEN, 0.35, 0),
-            ("residues_fast", M // C.RES_CHUNK, C.RES_CHUNK, C.RES_OW_FAST,
-             C.RES_CAP_FAST, 0.4, 0),
-            ("residues_wide", M // C.RES_CHUNK, C.RES_CHUNK, C.RES_OW_WIDE,
-             C.RES_CAP_WIDE, 0.2, 2),
-        ]
-        for name, R, ch, ow, cap, p, ovf in cases:
-            vals, widths = _pack_case(rng, dev, R, ch, cap, p, ovf)
-            got = pack_chunks(vals, widths, ch, ow)
-            want = pack_chunks_plain(vals, widths, ch, ow)
-            torch.cuda.synchronize()
-            for g, w, n in zip(got, want, ("chunks", "chunk_bits")):
-                if not torch.equal(g, w):
-                    bad = int((g != w).sum().item())
-                    raise AssertionError(f"pack_chunks {shape} {name} {n}: "
-                                         f"{bad} mismatches")
-            pk_err = max(pk_err, max(int((g.long() - w.long()).abs().max())
-                                     for g, w in zip(got, want)))
-            run = lambda: pack_chunks(vals, widths, ch, ow)
-            bound, by = _bound_ms(R * ch * 8 + R * ow * 4 + R * 4)
-            case = pk[f"{shape}/{name}"] = {
-                "R": R, "ch": ch, "ow": ow, "ms": _time_ms(run),
-                "device_ms": _device_ms(run, "chunk_pack_kernel"),
-                "plain_ms": _time_ms(
-                    lambda: pack_chunks_plain(vals, widths, ch, ow)),
-                "bound_ms": bound, "bound_by": by}
-            print(f"pack_chunks {shape} {name} R={R} ch={ch} ow={ow} "
-                  f"cap={cap}: equal; device {case['device_ms']:.4f} ms, "
-                  f"per call host included {case['ms']:.4f} ms, bound "
-                  f"{bound:.4f} ms ({bound / case['device_ms']:.0%}), plain "
-                  f"{case['plain_ms']:.4f} ms", flush=True)
+        tok = _pack_case(rng, dev, M // C.TOK_CHUNK, C.TOK_CHUNK,
+                         C.TOK_MAX_LEN, 0.35) + (C.TOK_CHUNK, C.TOK_OW)
+        res = {k: _pack_case(rng, dev, M // C.RES_CHUNK, C.RES_CHUNK, cap, p,
+                             ovf) + (C.RES_CHUNK, ow)
+               for k, (ow, cap, p, ovf) in res_geometries.items()}
+        for k in res:
+            pk[f"{shape}/pair_{k}"] = _check_pack(f"{shape} pair tokens + "
+                                                  f"residues {k}",
+                                                  (tok, res[k]))
+        pk[f"{shape}/tokens"] = _check_pack(f"{shape} tokens alone", (tok,))
+        pk[f"{shape}/residues_fast"] = _check_pack(
+            f"{shape} residues fast alone", (res["fast"],))
+    # overflow, all-zero and exactly full chunks, at the edge tile's
+    # chunk counts
+    M = KERNEL_SHAPES["edge"] * 3072 * 64
+    for k, (ow, cap, p, _ovf) in res_geometries.items():
+        pk[f"edge_cases_{k}"] = _check_pack(
+            f"edge cases, residues {k}",
+            (_pack_edge_case(rng, dev, M // C.TOK_CHUNK, C.TOK_CHUNK,
+                             C.TOK_OW, C.TOK_MAX_LEN, 0.35),
+             _pack_edge_case(rng, dev, M // C.RES_CHUNK, C.RES_CHUNK, ow,
+                             cap, p)), timed=False)
     # the stage's two edge cases: every row sampled (hs 1) with all
     # tokens < 64, and one valid token >= 64 among tokens < 64
     odd = _transport_case(rng, dev, 3073)
@@ -333,8 +404,7 @@ def check_kernels(dev):
     tp["token_ge_64"] = _check_transport("token_ge_64", tok64, HS,
                                          timed=False)
     assert not tp["token_ge_64"]["tok_ok"]
-    main = ("lfg/tokens", "lfg/residues_fast")
-    top = tp["lfg"]
+    top, pair = tp["lfg"], pk["lfg/pair_fast"]
     return [{"name": "transport_prep", "route": "cuda",
              "source": "hydrium_tpu_torch/csrc/transport_prep.cu",
              "replaces": "hydrium_tpu/ops/pallas/prep.py:221",
@@ -346,13 +416,12 @@ def check_kernels(dev):
             {"name": "chunk_pack", "route": "cuda",
              "source": "hydrium_tpu_torch/csrc/chunk_pack.cu",
              "replaces": "hydrium_tpu/ops/pallas/bitpack.py:203",
-             "max_abs_err": pk_err,
-             "ms": sum(pk[k]["ms"] for k in main),
-             "device_ms": sum(pk[k]["device_ms"] for k in main),
-             "plain_ms": sum(pk[k]["plain_ms"] for k in main),
-             "bound_ms": sum(pk[k]["bound_ms"] for k in main),
-             "bound_by": "bytes", "library_ms": None,
-             "shape": "LF group, tokens + residues fast", "by_case": pk}]
+             "max_abs_err": max(c["max_abs_err"] for c in pk.values()),
+             "ms": pair["ms"], "device_ms": pair["device_ms"],
+             "plain_ms": pair["plain_ms"], "bound_ms": pair["bound_ms"],
+             "bound_by": pair["bound_by"], "library_ms": None,
+             "shape": "LF group, tokens + residues fast in one launch",
+             "by_case": pk}]
 
 
 # float32 operations per pixel of the frontend kernel's prologue (sample
@@ -1028,7 +1097,7 @@ def check_parallel(img, want: dict, scratch: str, smi: str) -> dict:
             d = n_dispatches(c)
             assert c.get("codec_bootstraps") == 1, c
             assert launches["transport_prep"] == d, launches
-            assert launches["chunk_pack"] == 2 * d, launches
+            assert launches["chunk_pack"] == d, launches
             assert launches["frontend_tokens"] == (d if fused else 0)
             assert launches["frontend_groups"] == 0, launches
             runs[name] = {"wall_s": wall, "bytes": len(got), "counters": c,
@@ -1068,7 +1137,7 @@ def check_parallel(img, want: dict, scratch: str, smi: str) -> dict:
         assert not any(c.get("lfg_fallback") for c in counters), counters
         d = sum(n_dispatches(c) for c in counters)
         assert launches["transport_prep"] == d, launches
-        assert launches["chunk_pack"] == 2 * d, launches
+        assert launches["chunk_pack"] == d, launches
         assert launches["frontend_tokens"] == (d if fused else 0), launches
         assert launches["frontend_groups"] == 0, launches
         runs[name] = {"wall_s": wall, "encode_walls_s": [r["wall_s"]
@@ -1092,16 +1161,18 @@ def check_parallel(img, want: dict, scratch: str, smi: str) -> dict:
     launches = kernel_counts()
     with open(trace) as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
-    traced = sorted(k for k in ("transport_prep_kernel", "chunk_pack_kernel")
+    traced = sorted(k for k in ("transport_prep_kernel",
+                                "chunk_pack_streams_kernel")
                     if any(k in n for n in names))
     print(f"dryrun_multichip(8) on 8 entries of cuda:0: {syms} symbols, "
           f"{nbytes} section bytes (CPU: {cpu_syms}, {cpu_bytes}), "
           f"{wall:.3f} s inside device_trace; kernels in the trace "
           f"{traced}; launches {launches}", flush=True)
     assert abs(syms - cpu_syms) <= 1e-4 * cpu_syms, (syms, cpu_syms)
-    assert traced == ["chunk_pack_kernel", "transport_prep_kernel"], traced
+    assert traced == ["chunk_pack_streams_kernel",
+                      "transport_prep_kernel"], traced
     assert launches["transport_prep"] == 8, launches
-    assert launches["chunk_pack"] == 16, launches
+    assert launches["chunk_pack"] == 8, launches
     runs["dryrun_8"] = {"wall_s": wall, "symbols": syms,
                         "section_bytes": nbytes, "cpu_symbols": cpu_syms,
                         "cpu_section_bytes": cpu_bytes, "launches": launches}
@@ -1162,7 +1233,7 @@ def main() -> int:
     assert c.get("codec_bootstraps", 0) == 1, c     # the cold start
     dispatches = n_dispatches(c)
     assert launches["transport_prep"] == dispatches, launches
-    assert launches["chunk_pack"] == 2 * dispatches, launches
+    assert launches["chunk_pack"] == dispatches, launches
     assert launches["frontend_groups"] == launches["frontend_tokens"] == 0
     assert data[:2] == b"\xff\x0a", data[:4].hex()
 
@@ -1236,7 +1307,7 @@ def main() -> int:
     assert tiled_launches["frontend_tokens"] == dispatches > 0, tiled_launches
     assert tiled_launches["frontend_groups"] == 0, tiled_launches
     assert tiled_launches["transport_prep"] == dispatches, tiled_launches
-    assert tiled_launches["chunk_pack"] == 2 * dispatches, tiled_launches
+    assert tiled_launches["chunk_pack"] == dispatches, tiled_launches
     assert tiled[:2] == b"\xff\x0a", tiled[:4].hex()
 
     tw_stats = EncodeStats()
@@ -1245,6 +1316,10 @@ def main() -> int:
     t_tiled_warm = time.perf_counter() - t0
     assert tiled2 == tiled, "second tiled encode is not byte-identical"
     tiled_stages = {k: round(v, 4) for k, v in tw_stats.stage_seconds.items()}
+    digests = {name: hashlib.sha256(b).hexdigest() for name, b in (
+        ("one_frame", data), ("one_frame_fused", fused_data),
+        ("tiled_fused", tiled))}
+    print(f"sha256 of the 4K files: {digests}", flush=True)
     print(f"tiled (warm, fused front): {t_tiled_warm:.3f} s, "
           f"{mpix / t_tiled_warm:.2f} Mpix/s on {smi}; stages "
           f"{tiled_stages}", flush=True)
@@ -1310,7 +1385,7 @@ def main() -> int:
         assert cc.get("lfg_fallback", 0) == 0, cc
         d = n_dispatches(cc)
         assert got_launches["transport_prep"] == d, got_launches
-        assert got_launches["chunk_pack"] == 2 * d, got_launches
+        assert got_launches["chunk_pack"] == d, got_launches
         assert got_launches["frontend_tokens"] == (d if fused else 0)
         assert got_launches["frontend_groups"] == 0, got_launches
         cli_runs[name] = {"bytes": len(got), "wall_s": wall, "counters": cc,

@@ -102,7 +102,7 @@ def lib() -> ctypes.CDLL:
         L.hyd_transport_prep.restype = I
         L.hyd_transport_prep.argtypes = [P] * 7 + [I, LL, I] + [P] * 7
         L.hyd_chunk_pack.restype = I
-        L.hyd_chunk_pack.argtypes = [P, P, LL, I, I, P, P, P]
+        L.hyd_chunk_pack.argtypes = [P, P, LL, I, I, P, P] * 2 + [P]
         L.hyd_frontend.restype = I
         L.hyd_frontend.argtypes = [P] + [I] * 7 + [ctypes.c_float, I] \
             + [P, P, I, P, P, P, I] + [P] * 6

@@ -4,12 +4,14 @@ LF residuals.  Twins of hydrium_tpu/ops/pipeline.py _chunk_layout,
 _bitpack_at, _overwrite_compact, _bitpack and _bitpack64 (the CPU-branch
 semantics).
 
-pack_chunks is the wrapper of the CUDA kernel csrc/chunk_pack.cu (it
-replaces the TPU kernel ops/pallas/bitpack.py::merge_pack_chunks); on a
-CPU tensor it runs pack_chunks_plain.  Composed with overwrite_compact
-it gives the words of chunk_layout + bitpack_at for every chunk whose
-bits fit its ow-word buffer; for a chunk that overflows only the ok
-word of the payload is format semantics.
+pack_chunk_streams (both chunk streams of a dispatch) and pack_chunks
+(one stream) wrap the CUDA kernel csrc/chunk_pack.cu, one launch per
+call (it replaces the TPU kernel ops/pallas/bitpack.py::
+merge_pack_chunks); on CPU tensors they run pack_chunks_plain per
+stream.  Composed with overwrite_compact (compact_chunks) the chunks
+give the words of chunk_layout + bitpack_at for every chunk whose bits
+fit its ow-word buffer; for a chunk that overflows only the ok word of
+the payload is format semantics.
 
 Fields are (value, width) pairs with value < 2^width.  Words are u32
 values in int64 (plain arithmetic) or u32 bit patterns in int32
@@ -84,36 +86,79 @@ def pack_chunks_plain(values, nbits, ch: int, ow: int):
     return bits32(words).reshape(R, ow), inc[:, -1].to(torch.int32)
 
 
+# the kernel's geometry: ch a whole number of 1024-field stripes (at most
+# 4), ow words a multiple of 4 (16-byte rows for the bulk copies)
+_KERNEL_CH = (1024, 2048, 4096)
+_KERNEL_MAX_OW = 2048
+
+
+def _stream_args(values, nbits, ch: int, ow: int, dev):
+    """Check one stream for the kernel; allocate its outputs.  Returns
+    (ctypes arguments, (chunks, chunk_bits))."""
+    F = values.shape[0]
+    for t in (values, nbits):
+        if (t.device != dev or t.dtype != torch.int32 or t.dim() != 1
+                or t.shape[0] != F or not t.is_contiguous()):
+            raise ValueError(f"chunk_pack: bad input {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError("chunk_pack: input not 16-byte aligned (the "
+                             "kernel loads it with bulk copies)")
+    if (ch not in _KERNEL_CH or F % ch or ow % 4
+            or not 4 <= ow <= _KERNEL_MAX_OW):
+        raise ValueError(f"chunk_pack: unsupported ch={ch} ow={ow} F={F}")
+    R = F // ch
+    chunks = torch.empty((R, ow), dtype=torch.int32, device=dev)
+    chunk_bits = torch.empty(R, dtype=torch.int32, device=dev)
+    return ([values.data_ptr(), nbits.data_ptr(), R, ch, ow,
+             chunks.data_ptr(), chunk_bits.data_ptr()], (chunks, chunk_bits))
+
+
+def _launch(streams):
+    """One launch of the kernel over one or two streams of (values,
+    nbits, ch, ow), all on one CUDA device.  Returns [(chunks,
+    chunk_bits)] per stream."""
+    dev = streams[0][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"chunk_pack: unsupported device {dev}")
+    args, outs = [], []
+    for values, nbits, ch, ow in streams:
+        a, out = _stream_args(values, nbits, ch, ow, dev)
+        args += a
+        outs.append(out)
+    if len(streams) == 1:                    # no second stream: R = 0
+        args += [None, None, 0, 0, 0, None, None]
+    if sum(chunks.shape[0] for chunks, _ in outs):
+        rc = _kernels.lib().hyd_chunk_pack(*args, _kernels.stream_ptr(
+            streams[0][0]))
+        _kernels.check(rc, "chunk_pack")
+        pack_chunks.launches += 1
+    return outs
+
+
 def pack_chunks(values, nbits, ch: int, ow: int):
     """Pack fields [r*ch, (r+1)*ch) LSB-first into row r of chunks
     [R, ow] (bits past ow*32 dropped, words past the chunk's bits zero)
-    and return (chunks, chunk_bits).  CUDA tensors launch the kernel,
-    CPU tensors take the plain twin."""
+    and return (chunks, chunk_bits).  CUDA tensors launch the kernel
+    once (values and nbits 16-byte aligned), CPU tensors take the plain
+    twin.  pack_chunks.launches counts the kernel's launches, from here
+    and from pack_chunk_streams."""
     if values.device.type == "cpu":
         return pack_chunks_plain(values, nbits, ch, ow)
-    if values.device.type != "cuda":
-        raise ValueError(f"pack_chunks: unsupported device {values.device}")
-    F = values.shape[0]
-    for t in (values, nbits):
-        if (t.device != values.device or t.dtype != torch.int32
-                or t.dim() != 1 or t.shape[0] != F
-                or not t.is_contiguous()):
-            raise ValueError(f"pack_chunks: bad input {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    if ch not in (256, 512, 1024, 2048, 4096) or F % ch or not 1 <= ow <= 4096:
-        raise ValueError(f"pack_chunks: unsupported ch={ch} ow={ow} F={F}")
-    R = F // ch
-    chunks = torch.empty((R, ow), dtype=torch.int32, device=values.device)
-    chunk_bits = torch.empty(R, dtype=torch.int32, device=values.device)
-    rc = _kernels.lib().hyd_chunk_pack(
-        values.data_ptr(), nbits.data_ptr(), R, ch, ow, chunks.data_ptr(),
-        chunk_bits.data_ptr(), _kernels.stream_ptr(values))
-    _kernels.check(rc, "chunk_pack")
-    pack_chunks.launches += 1
-    return chunks, chunk_bits
+    return _launch([(values, nbits, ch, ow)])[0]
 
 
 pack_chunks.launches = 0
+
+
+def pack_chunk_streams(tok, res):
+    """Both chunk streams of one dispatch: tok and res are each (values,
+    nbits, ch, ow) as pack_chunks takes them.  Returns ((tok_chunks,
+    tok_bits), (res_chunks, res_bits)); on the card in one launch of the
+    kernel, on CPU tensors through the plain twin per stream."""
+    if tok[0].device.type == "cpu":
+        return pack_chunks_plain(*tok), pack_chunks_plain(*res)
+    return tuple(_launch([tok, res]))
 
 
 def overwrite_compact(chunks: torch.Tensor, nw: torch.Tensor,
@@ -133,12 +178,16 @@ def overwrite_compact(chunks: torch.Tensor, nw: torch.Tensor,
     return out[:num_words]
 
 
-def bitpack_v3(values, nbits, ch: int, ow: int, num_words: int):
-    """Format-v3 chunk stream: (words i32 [u32 bits] [num_words], nw
-    int64 [R], chunk_bits i32 [R])."""
-    chunks, chunk_bits = pack_chunks(values, nbits, ch, ow)
+def compact_chunks(chunks, chunk_bits, num_words: int):
+    """Packed chunks -> the format-v3 chunk stream: (words i32 [u32
+    bits] [num_words], nw int64 [R], chunk_bits i32 [R])."""
     nw = (chunk_bits.to(torch.int64) + 31) >> 5
     return overwrite_compact(chunks, nw, num_words), nw, chunk_bits
+
+
+def bitpack_v3(values, nbits, ch: int, ow: int, num_words: int):
+    """Format-v3 chunk stream of one field stream (see compact_chunks)."""
+    return compact_chunks(*pack_chunks(values, nbits, ch, ow), num_words)
 
 
 def bitpack(values, nbits, num_words: int):

@@ -21,7 +21,7 @@ from typing import Dict
 import torch
 
 from . import front as _front
-from .bitpack import bitpack, bitpack64, bitpack_v3
+from .bitpack import bitpack, bitpack64, compact_chunks, pack_chunk_streams
 from .constants import (RES_CAP_FAST, RES_CAP_WIDE, RES_CHUNK,
                         RES_LANES_FAST, RES_LANES_WIDE, RES_OW_FAST,
                         RES_OW_WIDE, TOK_CHUNK, TOK_MAX_LEN, TOK_OW)
@@ -90,10 +90,11 @@ def pack_payload(out: Dict[str, torch.Tensor], tok_len: torch.Tensor,
     res_lanes = RES_LANES_WIDE if wide_residues else RES_LANES_FAST
     tok_cap_words = (M // TOK_CHUNK) * ((TOK_MAX_LEN * TOK_CHUNK) >> 5)
     res_cap_words = (M // RES_CHUNK) * (res_ow - res_lanes)
-    tok_words, tok_nw, _ = bitpack_v3(t_flat, t_bits, TOK_CHUNK, TOK_OW,
-                                      tok_cap_words)
-    res_words, res_nw, res_cb = bitpack_v3(r_flat, r_bits, RES_CHUNK,
-                                           res_ow, res_cap_words)
+    tok_chunks, res_chunks = pack_chunk_streams(
+        (t_flat, t_bits, TOK_CHUNK, TOK_OW),
+        (r_flat, r_bits, RES_CHUNK, res_ow))
+    tok_words, tok_nw, _ = compact_chunks(*tok_chunks, tok_cap_words)
+    res_words, res_nw, res_cb = compact_chunks(*res_chunks, res_cap_words)
     tok_total = 32 * tok_nw.sum()
     res_total = 32 * res_nw.sum()
     res_cb = res_cb.to(torch.int64)

@@ -2,8 +2,11 @@
 JAX package's CPU forms: chunk pack + overwrite_compact equals
 pipeline._bitpack_v3(use_mxu=False) for the token and residue (fast and
 wide) geometries, chunk_layout/bitpack_at equal their twins, and the LF
-stream's bitpack/bitpack64 equal _bitpack/_bitpack64, all exactly.  The
-CUDA chunk-pack kernel against its plain twin is in test_torch_cuda.py."""
+stream's bitpack/bitpack64 equal _bitpack/_bitpack64, all exactly; the
+plain chunk-pack twin equals the Pallas kernel merge_pack_chunks (in
+interpret mode) for every chunk that fits, and pack_chunk_streams on CPU
+equals the plain twin per stream.  The CUDA chunk-pack kernel against
+its plain twin is in test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -12,6 +15,7 @@ import torch
 import jax.numpy as jnp
 
 from hydrium_tpu.ops import pipeline as P
+from hydrium_tpu.ops.pallas import bitpack as PB
 from hydrium_tpu_torch.ops import bitpack as TB
 
 
@@ -64,6 +68,49 @@ def test_chunk_stream_equals_bitpack_v3(name, ch, ow, cap, p, lanes,
     got = TB.bitpack_v3(_t(vals), _t(widths), ch, ow, num_words)
     for g, w, n in zip(got, want, ("words", "nw", "chunk_bits")):
         np.testing.assert_array_equal(_u(g), _u(w), err_msg=n)
+
+
+@pytest.mark.parametrize("name,ch,ow,cap,p,lanes,n_full", GEOMETRIES)
+def test_plain_pack_equals_pallas_merge_pack(name, ch, ow, cap, p, lanes,
+                                             n_full):
+    """pack_chunks_plain against the TPU kernel itself, run as
+    tests/test_pallas_bitpack.py runs it: chunk_bits exactly equal, and
+    rows exactly equal for every chunk that fits its ow words (past
+    ow*32 the Pallas rows are garbage by contract)."""
+    rng = np.random.default_rng(3 * ch + cap)
+    R = 3
+    vals, widths = _fields(rng, R * ch, cap, p, n_full)
+    lanes_in, qbits = P._quad_fields(jnp.asarray(vals), jnp.asarray(widths),
+                                     cap)
+    want_rows, want_bits = PB.merge_pack_chunks(lanes_in, qbits, ch, ow, cap,
+                                                interpret=True)
+    rows, bits = TB.pack_chunks_plain(_t(vals), _t(widths), ch, ow)
+    np.testing.assert_array_equal(_u(bits), _u(want_bits))
+    fits = _u(bits) <= ow * 32
+    assert fits.all()
+    np.testing.assert_array_equal(_u(rows)[fits], _u(want_rows)[fits])
+
+
+@pytest.mark.parametrize("res", ["res_fast", "res_wide"])
+def test_pack_chunk_streams_cpu_equals_plain(res):
+    """Tokens with fast or wide residues: the pair call on CPU equals the
+    plain twin per stream, overflowing residue chunk included."""
+    rng = np.random.default_rng(len(res))
+    streams = []
+    for name, ch, ow, cap, p, _lanes, n_full in GEOMETRIES:
+        if name in ("tokens", res):
+            vals, widths = _fields(rng, 5 * ch, cap, p, n_full)
+            if name != "tokens":
+                widths[ch:2 * ch] = cap
+                vals[ch:2 * ch] = rng.integers(0, 1 << cap, ch)
+            streams.append((_t(vals), _t(widths), ch, ow))
+    got = TB.pack_chunk_streams(*streams)
+    assert len(got) == 2
+    for (chunks, bits), stream in zip(got, streams):
+        want = TB.pack_chunks_plain(*stream)
+        assert chunks.shape == (5, stream[3])
+        assert torch.equal(chunks, want[0]) and torch.equal(bits, want[1])
+    assert int(got[1][1][1]) > streams[1][3] * 32     # residue row 1 overflows
 
 
 @pytest.mark.parametrize("num_words", [40, 4000])

@@ -123,6 +123,87 @@ def test_chunk_pack_kernel_equals_plain(cuda, ch, ow, cap, p):
         assert torch.equal(g, w)
 
 
+def _res_geometry(wide):
+    return ((C.RES_OW_WIDE, C.RES_CAP_WIDE, 0.15) if wide
+            else (C.RES_OW_FAST, C.RES_CAP_FAST, 0.4))
+
+
+def _assert_pair_equal(tok, res):
+    """Both streams in one launch, each equal to the plain twin."""
+    before = TB.pack_chunks.launches
+    got = TB.pack_chunk_streams(tok, res)
+    want = (TB.pack_chunks_plain(*tok), TB.pack_chunks_plain(*res))
+    torch.cuda.synchronize()
+    assert TB.pack_chunks.launches == before + 1
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.shape == b.shape and torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["fast", "wide"])
+@pytest.mark.parametrize("r_tok,r_res", [(48, 96), (600, 1200)],
+                         ids=["edge_tile", "above_two_waves"])
+def test_chunk_pack_pair_equals_plain(cuda, r_tok, r_res, wide):
+    """Tokens and residues of one dispatch in one launch: 144 chunks,
+    fewer than the card's SMs, and 1800, more than two waves of the
+    persistent grid.  Two leading residue chunks at cap overflow."""
+    rng = np.random.default_rng(r_tok + wide)
+    ow, cap, p = _res_geometry(wide)
+    tok = _fields(rng, r_tok * C.TOK_CHUNK, C.TOK_MAX_LEN, 0.35, 0, cuda)
+    res = _fields(rng, r_res * C.RES_CHUNK, cap, p, 2 * C.RES_CHUNK, cuda)
+    _assert_pair_equal((*tok, C.TOK_CHUNK, C.TOK_OW),
+                       (*res, C.RES_CHUNK, ow))
+
+
+def _edge_chunks(rng, ch, ow, cap, p, dev):
+    """Four chunks: one past ow*32 bits (every field at over 32*ow/ch
+    bits), one of zero widths only, one of exactly ow*32 bits, one
+    drawn as usual."""
+    widths = np.minimum(rng.geometric(p, 4 * ch), cap).reshape(4, ch)
+    widths[0] = 32 * ow // ch + 1
+    widths[1] = 0
+    exact = np.full(ch, 32 * ow // ch)
+    exact[:32 * ow % ch] += 1
+    widths[2] = rng.permutation(exact)
+    assert widths[2].sum() == 32 * ow and widths[0].sum() > 32 * ow
+    widths = widths.reshape(-1).astype(np.int64)
+    vals = rng.integers(0, 1 << 32, 4 * ch, dtype=np.int64) & (
+        (1 << widths) - 1)
+    return (torch.tensor(vals.astype(np.uint32).view(np.int32), device=dev),
+            torch.tensor(widths.astype(np.int32), device=dev), ch, ow)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["fast", "wide"])
+def test_chunk_pack_pair_edge_chunks(cuda, wide):
+    """In both streams: a chunk that overflows ow*32 (its bits past the
+    row dropped, chunk_bits exact), a chunk whose widths are all zero
+    (a zero row, chunk_bits 0) and a chunk of exactly ow*32 bits."""
+    rng = np.random.default_rng(40 + wide)
+    ow, cap, p = _res_geometry(wide)
+    tok = _edge_chunks(rng, C.TOK_CHUNK, C.TOK_OW, C.TOK_MAX_LEN, 0.35, cuda)
+    res = _edge_chunks(rng, C.RES_CHUNK, ow, cap, p, cuda)
+    got = _assert_pair_equal(tok, res)
+    for (chunks, bits), (_v, widths, ch, ow_s) in zip(got, (tok, res)):
+        assert torch.equal(bits, widths.view(4, ch).sum(1).int())
+        assert int(bits[0]) > 32 * ow_s and int(bits[2]) == 32 * ow_s
+        assert not chunks[1].any() and int(bits[1]) == 0
+
+
+def test_chunk_pack_rejects_misaligned_input(cuda):
+    """The kernel loads with bulk copies: a view 4 bytes into its
+    storage raises, in the one-stream and the pair call."""
+    vals, widths = _fields(np.random.default_rng(3), C.TOK_CHUNK + 4,
+                           C.TOK_MAX_LEN, 0.35, 0, cuda)
+    F = C.TOK_CHUNK
+    with pytest.raises(ValueError, match="aligned"):
+        TB.pack_chunks(vals[1:F + 1], widths[:F], F, C.TOK_OW)
+    with pytest.raises(ValueError, match="aligned"):
+        TB.pack_chunk_streams(
+            (vals[:F], widths[:F], F, C.TOK_OW),
+            (vals[4:4 + 2048], widths[1:1 + 2048], 2048, C.RES_OW_FAST))
+
+
 @pytest.mark.parametrize("ch,ow,cap,p,lanes", [
     (C.TOK_CHUNK, C.TOK_OW, C.TOK_MAX_LEN, 0.35, 0),
     (C.RES_CHUNK, C.RES_OW_FAST, C.RES_CAP_FAST, 0.4, C.RES_LANES_FAST),
@@ -393,7 +474,7 @@ def test_card_encode_equals_cpu_encode_with_shared_front(cuda, monkeypatch):
     assert got == want
     assert stats.counters["lfg_packed"] == 2
     assert TT.transport_prep.launches - launches[0] == 2
-    assert TB.pack_chunks.launches - launches[1] == 4
+    assert TB.pack_chunks.launches - launches[1] == 2
 
 
 def test_card_tiled_encode_equals_cpu_encode_with_shared_front(cuda,

@@ -26,6 +26,7 @@ def _port_files():
     files = sorted((REPO / "hydrium_tpu_torch").rglob("*.py"))
     return files + [REPO / name for name in ("chip_smoke.py",
                                              "profile_front.py",
+                                             "profile_pack.py",
                                              "profile_tiled.py",
                                              "profile_transport.py")]
 
