@@ -87,7 +87,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    file equal to the in-process one.  No device use: every kernel
    counter reads 0 across the phase and torch.cuda.memory_allocated()
    is unchanged.  The phase's host walls are printed with the card's
-   name and power limit.
+   name and power limit;
+10. the bench (hydrium_tpu_torch/bench.py), in this process: its device
+   plane on one 2048^2 LF group (20 calls a variant) and its end-to-end
+   rows at full 4K (3 encodes a row; smooth, noisy, tiled, tiled with
+   the fused front, photo).  Checks: every figure above 0; the fused
+   variant launches transport_prep, chunk_pack and frontend_tokens once
+   per call; the noisy one-frame row's file has phase 4's sha256 and the
+   tiled-fused row's phase 5's.  Its JSON line is printed with the
+   card's name and power limit, then the script's whole wall.
 Each encode path's launch counts are zeroed just before it and read
 just after it.  A dispatch is a packed LF group, stacked chunk or edge
 tile, a wide retry, or the cold-start bootstrap of the transport codec
@@ -768,15 +776,11 @@ def timed_with_window(encode, img, inflight):
 
 
 def make_4k(seed: int = 0) -> np.ndarray:
-    """3840x2160 u8: sinusoid plus Gaussian noise (bench.py make_4k_noisy)."""
-    rng = np.random.default_rng(seed)
-    h, w = 2160, 3840
-    yy = np.arange(h, dtype=np.float32)[:, None, None]
-    xx = np.arange(w, dtype=np.float32)[None, :, None]
-    phase = np.array([0.0, 1.3, 2.1], np.float32)
-    base = 128 + 80 * np.sin(xx / 97.0 + phase) * np.cos(yy / 53.0 - phase)
-    noise = rng.normal(0, 24, (h, w, 3)).astype(np.float32)
-    return np.clip(base + noise, 0, 255).astype(np.uint8)
+    """3840x2160 u8: sinusoid plus Gaussian noise (the bench's
+    make_4k_noisy)."""
+    from hydrium_tpu_torch.bench import make_4k_noisy
+
+    return make_4k_noisy(seed)
 
 
 def front_flips(img: np.ndarray, dev) -> tuple:
@@ -932,18 +936,9 @@ def phase8_image(kind: str):
 
 def kernel_counts(zero: bool = False) -> dict:
     """The kernel wrappers' launch counts (set to 0 first when `zero`)."""
-    from hydrium_tpu_torch.ops.bitpack import pack_chunks
-    from hydrium_tpu_torch.ops.frontend import (frontend_groups,
-                                                frontend_tokens)
-    from hydrium_tpu_torch.ops.transport import transport_prep
+    from hydrium_tpu_torch import bench
 
-    fns = {"transport_prep": transport_prep, "chunk_pack": pack_chunks,
-           "frontend_groups": frontend_groups,
-           "frontend_tokens": frontend_tokens}
-    if zero:
-        for fn in fns.values():
-            fn.launches = 0
-    return {k: fn.launches for k, fn in fns.items()}
+    return bench.kernel_counts(zero)
 
 
 def multihost_child(addr: str, rank: str, kind: str, fused: str,
@@ -1179,9 +1174,49 @@ def check_parallel(img, want: dict, scratch: str, smi: str) -> dict:
     return runs
 
 
+def check_bench(digests: dict, smi: str) -> dict:
+    """Phase 10: the bench's device plane and rows on the card (module
+    docstring).  digests: phase 4's and 5's sha256 by file.  Returns the
+    phase's record with the rows' launches."""
+    from hydrium_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    dp = bench.device_plane(20, "cuda")
+    for v in ("torch", "fused", "unpacked"):
+        for k in ("ms_per_lfg", "mpix_s", "per_call_ms", "queued_ms_per_lfg"):
+            assert dp[f"{v}_{k}"] > 0, (v, k, dp)
+    assert dp["fused_launches_per_call"] == {
+        "transport_prep": 1, "chunk_pack": 1, "frontend_tokens": 1,
+        "frontend_groups": 0}, dp["fused_launches_per_call"]
+    assert dp["fused_device_busy_ms_per_call"] > 0, dp
+    assert len(dp["fused_top_ops"]) == 5, dp["fused_top_ops"]
+    kernel_counts(zero=True)
+    result, files = bench.rows(3, "cuda")
+    launches = kernel_counts()
+    for row in bench.ROWS:
+        for fig, key in bench.row_keys(row).items():
+            if fig != "walls_s":
+                assert result[key] > 0, (key, result[key])
+    assert launches["frontend_tokens"] > 0, launches
+    assert launches["transport_prep"] == launches["chunk_pack"] > 0
+    assert launches["frontend_groups"] == 0, launches
+    got = {name: hashlib.sha256(files[row]).hexdigest()
+           for name, row in (("one_frame", "value"),
+                             ("tiled_fused", "tiled_fused"))}
+    assert got == {k: digests[k] for k in got}, (got, digests)
+    wall = time.perf_counter() - t0
+    print(json.dumps({"bench": result, "device_plane": dp, "card": smi,
+                      "sha256": got, "launches": launches,
+                      "wall_s": wall}), flush=True)
+    print(f"bench on the card: {wall:.3f} s; files equal phases 4 and 5",
+          flush=True)
+    return {"wall_s": wall, "launches": launches}
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1446,6 +1481,9 @@ def main() -> int:
 
     # phase 9: the conformance profile, which launches no kernel
     conformance = check_conformance(scratch.name, smi)
+
+    # phase 10: the bench on the card
+    bench_run = check_bench(digests, smi)
     scratch.cleanup()
 
     # "launches" is the tiled run with the fused front, the main path:
@@ -1458,10 +1496,14 @@ def main() -> int:
     paths.update({k: v["launches"] for k, v in cli_runs.items()})
     paths.update({k: v["launches"] for k, v in parallel.items()})
     paths["conformance"] = conformance["launches"]
+    paths["bench_rows"] = bench_run["launches"]
     for r in results:
         r["launches"] = tiled_launches[r["name"]]
         r["on_main_path"] = r["name"] != "frontend_groups"
         r["launches_by_path"] = {k: v[r["name"]] for k, v in paths.items()}
+    # the whole wall, build and every phase, before the last two lines
+    print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": results, "encode_4k": {
         "bytes": len(data), "cold_s": t_cold, "warm_s": t_warm,
         "mpix_per_s": mpix / t_warm, "stages_s": stages,

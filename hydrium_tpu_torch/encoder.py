@@ -261,6 +261,7 @@ class _TorchDispatch:
                             pin_memory=on_card)
         stage.numpy()[:h, :w] = pixels[:h, :w]
         self.px = stage.to(device, non_blocking=True) if on_card else stage
+        stats.count("h2d_raw_bytes", stage.numel() * stage.element_size())
         self.lfg, self.preset, self.hf = lfg, preset, hf
         self.codec, self.front, self.device = codec, front, device
         self.stats = stats
@@ -298,6 +299,7 @@ class _TorchDispatch:
                 tok_classes=self.tok_classes, wide_residues=self.wide,
                 lf_seg_vb=self.lf_seg_vb, fused=self.fused)
             self._aux = _HostCopy(self._combined[:A])
+        self.stats.count("fetched_words", A)
 
     def start_fetch(self) -> None:
         self._future = _spawn(self._fetch)
@@ -359,6 +361,7 @@ class _TorchDispatch:
             else:
                 copy = _HostCopy(span)
             words = copy.wait().view(np.uint32)
+            self.stats.count("fetched_words", need + 1)
             if not _host.packed_verify(aux, words):
                 raise RuntimeError("packed payload stream checksum mismatch")
         if not folded:
@@ -399,6 +402,8 @@ class _TorchDispatch:
         bgcx = self.buf_w >> 8
         G = (self.buf_h >> 8) * bgcx
         host = {k: v.cpu().numpy() for k, v in out.items()}
+        self.stats.count("fetched_words",
+                         sum(a.nbytes for a in host.values()) // 4)
         lf_q = host["lf_q"][:vh, :vw]
         lf_res = host["lf_res"].view(np.uint32)[:vh, :vw]
         tokens = host["tokens"].view(np.uint16).reshape(G, 1024, 3, 64)
@@ -1348,7 +1353,8 @@ def encode_image(image: np.ndarray, tile_size_shift: int = -1,
     the math plane as Encoder's do (profile="conformance" is the numpy
     plane, which ignores `device`).  `stats`, when given, receives the
     encode's stage times and counters (lfg_packed, lfg_fallback,
-    wide_retries, codec_bootstraps)."""
+    wide_retries, codec_bootstraps, and the bytes that crossed the link:
+    h2d_raw_bytes uploaded, fetched_words copied back)."""
     if sample_fmt is None:
         sample_fmt = {np.dtype(np.uint8): SampleFormat.UINT8,
                       np.dtype(np.uint16): SampleFormat.UINT16}.get(

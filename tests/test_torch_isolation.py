@@ -94,6 +94,30 @@ def test_cpu_encode_loads_neither_jax_nor_the_jax_package(tmp_path):
     assert res.stdout.strip() == "ok"
 
 
+def test_bench_loads_neither_jax_nor_the_jax_package(tmp_path):
+    """The bench's rows and its device plane on the CPU, at a small
+    crop."""
+    code = ("import sys\n"
+            "from hydrium_tpu_torch import bench\n"
+            "assert bench.main(['1', '--device', 'cpu', '--crop', "
+            "'64x200']) == 0\n"
+            "assert bench.main(['1', '--device-plane', '--device', 'cpu', "
+            "'--crop', '64x64']) == 0\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('hydrium_tpu', 'jax', "
+            "'jaxlib'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+               HYDRIUM_TORCH_WARM_CACHE=str(tmp_path / "warm.npz"))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == "ok"
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert "hydrium_tpu_torch/bench.py" in names
+
+
 def test_parallel_modules_are_scanned():
     names = {p.relative_to(REPO).as_posix() for p in _port_files()}
     for mod in ("multihost", "driver", "shard", "dryrun"):

@@ -39,3 +39,30 @@ def test_device_trace_is_a_no_op_without_a_directory(log_dir, tmp_path,
         pass
     assert path is None
     assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("shift", [-1, 0])
+def test_link_byte_counters(shift, monkeypatch):
+    """h2d_raw_bytes covers every pixel uploaded, fetched_words at least
+    the stream words each payload said it needed, one-frame and tiled."""
+    from hydrium_tpu_torch import EncodeStats
+    from hydrium_tpu_torch import host
+
+    needed = []
+    real = host.packed_need_words
+
+    def spy(aux):
+        needed.append(real(aux))
+        return needed[-1]
+
+    monkeypatch.setattr(host, "packed_need_words", spy)
+    h, w = 300, 520
+    img = make_image(h, w, "noise", seed=9)
+    stats = EncodeStats()
+    data = hydrium_tpu_torch.encode_image(img, shift, device="cpu",
+                                          stats=stats)
+    assert data[:2] == b"\xff\x0a"
+    c = stats.counters
+    assert c["lfg_packed"] == len(needed) > 0
+    assert c["h2d_raw_bytes"] >= h * w * 3
+    assert c["fetched_words"] >= sum(needed) + len(needed)
