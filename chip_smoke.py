@@ -16,8 +16,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    through pack_chunks, and the pair with a chunk past ow*32 bits, an
    all-zero chunk and an exactly full chunk in each stream;
    the fused front's two epilogues at one LF group (G = 64), one
-   stacked tiled chunk (G = 16, u8 sRGB and f32 linear) and two edge
-   tiles (G = 1, true extent inside a smaller upload): q/dc within a
+   stacked tiled chunk (G = 16, u8 sRGB and f32 linear), two edge
+   tiles (G = 1, true extent inside a smaller upload) and, on 16-bit
+   samples of the 7680x4320 image of phase 11, its LF groups: a whole
+   one (G = 64), the right column (2048x1536, G = 48), the bottom row
+   (224x2048 uploaded into a 256-row buffer, G = 8) and the corner
+   (224x1536, G = 6): q/dc within a
    flip bound of its plain twin; the tokens epilogue exactly equal to
    the tokenizer run on the q/dc epilogue's q, and its rows that differ
    from its own plain twin within the flip bound; and, at the edge
@@ -46,8 +50,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the warm time and launches with the unfused front.  The sha256 of
    the one-frame (both fronts) and tiled 4K files is printed, so two
    commits' files can be compared;
-6. the command line on the card: the image written as a PNG (a zlib
-   writer of a few lines) and a 1024x768 f32 PFM, then
+6. the command line on the card: the image written as a PNG
+   (hydrium_tpu_torch/scale.py's writer) and a 1024x768 f32 PFM, then
    hydrium_tpu_torch.cli.main one-frame on the PNG (default front),
    --tile-size=0 on the PNG and one-frame --linear on the PFM (both with
    HYDRIUM_PALLAS=1, the fused front), on the default device.  Checks:
@@ -65,11 +69,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    over ["cuda:0"] and ["cuda:0", "cuda:0"], unfused and fused, each
    equal to encode_image's bytes with the same front; two processes over
    gloo on the one card (this script with --multihost-child), each
-   running encode_image_multihost on its half of the presets, on the 4K
-   image (fused front) and on an 8192x8192 u8 image synthesized per
-   strip in each process (scripts/config5_virtual.py's SyntheticImage,
-   unfused): process 0's bytes equal a single-process streaming
-   Encoder's; and dryrun_multichip(8) over eight entries of the card
+   running encode_image_multihost on its half of the presets of the 4K
+   image (fused front): process 0's bytes equal encode_image's (phase
+   11 runs the frame of over 2^28 pixels); and dryrun_multichip(8) over
+   eight entries of the card
    inside device_trace, whose trace must hold the kernels: symbols
    within 1e-4 of the same dry run on the CPU in this process.  Each
    path's walls, dispatches and kernel launches (the children's summed)
@@ -95,7 +98,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    variant launches transport_prep, chunk_pack and frontend_tokens once
    per call; the noisy one-frame row's file has phase 4's sha256 and the
    tiled-fused row's phase 5's.  Its JSON line is printed with the
-   card's name and power limit, then the script's whole wall.
+   card's name and power limit;
+11. the scale configurations (hydrium_tpu_torch/scale.py, BASELINE
+   configs 4 and 5): config4, the 7680x4320 u16 image through
+   Encoder.send_tile per LF group, cold then warm, with the default and
+   with the fused front (12 LF groups packed, none fallen back, each
+   kernel launched once a dispatch in the warm pass, the codestream
+   signature, both passes the same bytes); the image's bottom 224x7680
+   strip on the card with the front's integers taken from the port's
+   CPU front, equal byte for byte to the CPU's file, and the card's
+   front against the CPU front on that strip within the flip bound;
+   config5_cli and config5_multi at 16384 wide x 16385 tall (one row
+   over 2^28 pixels, so the level-10 container comes on by itself):
+   SyntheticImage written as a PNG, the CLI on it in a child process,
+   and two processes over gloo on the one card, each synthesizing its
+   own LF groups.  Checks: both files start with the level-10 prefix,
+   they are equal, every LF group packed and each kernel launched as
+   often as the dispatches need, and the RSS growth of the CLI and of
+   each process (peak RSS less the resident size after the card is up
+   and one small encode has run) at most half the frame's raw bytes.
+   Every wall is printed with the card's name and power limit, then the
+   script's whole wall.
 Each encode path's launch counts are zeroed just before it and read
 just after it.  A dispatch is a packed LF group, stacked chunk or edge
 tile, a wide retry, or the cold-start bootstrap of the transport codec
@@ -105,10 +128,10 @@ goes to a temporary directory, so the first encode starts cold.
 Prints one JSON line of kernel results, then as the last line
 {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --multihost-child ADDR RANK IMAGE FUSED OUT
+    python3 chip_smoke.py --multihost-child ADDR RANK OUT
 
-is one process of phase 8's two-process encode (IMAGE "4k" or "8192",
-FUSED 0 or 1; process 0 writes OUT); it prints one JSON line.
+is one process of phase 8's two-process encode of the 4K image with the
+fused front (process 0 writes OUT); it prints one JSON line.
 """
 
 import ctypes.util
@@ -116,12 +139,10 @@ import hashlib
 import json
 import os
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 import numpy as np
 
@@ -579,12 +600,14 @@ def _frontend_case(name, px, h, w, buf, linear, kind):
     return recs
 
 
-def check_frontend(img: np.ndarray, dev):
+def check_frontend(img: np.ndarray, img16: np.ndarray, dev):
     """Phase 3, fused front, both epilogues: one 2048^2 LF group
     (G = 64), one stacked chunk of 16 tiles (G = 16, u8 sRGB and f32
-    linear light), and edge tiles (G = 1) whose true extent is smaller
+    linear light), edge tiles (G = 1) whose true extent is smaller
     than the upload, which is smaller than the buffer: the kernel's own
-    pad and mask."""
+    pad and mask; and the LF groups of img16, the 7680x4320 u16 image
+    of phase 11: (0, 0), the right column, the bottom row (224 rows
+    uploaded into a 256-row buffer) and the corner."""
     import torch
 
     lfg = torch.as_tensor(np.ascontiguousarray(img[:2048, :2048]),
@@ -612,6 +635,13 @@ def check_frontend(img: np.ndarray, dev):
     huge[big] = rng.choice(np.float32([1e30, -1e30, 1e25, -1e25]),
                            int(big.sum()))
     saturating = _frontend_saturating_case(t(huge), 112, TILE, (TILE, TILE))
+    u16 = {}
+    for name, y, x, h, w in (("lfg_u16", 0, 0, 2048, 2048),
+                             ("right_u16", 0, 6144, 2048, 1536),
+                             ("bottom_u16", 4096, 0, 224, 2048),
+                             ("corner_u16", 4096, 6144, 224, 1536)):
+        px = t(np.ascontiguousarray(img16[y:y + h, x:x + w]))
+        u16[name] = (px, h, w, (-(-h // TILE) * TILE, w), False, "uint16")
     cases = {name: _frontend_case(name, *args) for name, args in (
         ("edge_u8", (t(edge), 112, TILE, (TILE, TILE), False, "uint8")),
         ("edge_narrow_u8", (t(narrow), 112, 200, (TILE, TILE), False,
@@ -619,10 +649,13 @@ def check_frontend(img: np.ndarray, dev):
         ("lfg_u8", (lfg, 2048, 2048, (2048, 2048), False, "uint8")),
         ("chunk_u8", (t(stack), 4096, TILE, (4096, TILE), False, "uint8")),
         ("chunk_f32_linear", (t(stack_f32), 4096, TILE, (4096, TILE), True,
-                              "float32")))}
+                              "float32")), *u16.items())}
     shape = ("lfg_u8: 2048x2048 (G=64); chunk_u8: 4096x256 (G=16); "
              "chunk_f32_linear: 4096x256; edge_u8: 112x256 in 128x256 "
-             "(G=1); edge_narrow_u8: 112x200 in 128x224 (G=1)")
+             "(G=1); edge_narrow_u8: 112x200 in 128x224 (G=1); lfg_u16: "
+             "2048x2048 (G=64); right_u16: 2048x1536 (G=48); bottom_u16: "
+             "224x2048 in a 256x2048 buffer (G=8); corner_u16: 224x1536 "
+             "in a 256x1536 buffer (G=6)")
     out = []
     for name, ep in (("frontend_groups", "q"), ("frontend_tokens", "tokens")):
         by_case = {k: c[ep] for k, c in cases.items()}
@@ -673,29 +706,6 @@ def encode_tiled(img: np.ndarray, fused: bool, stats) -> bytes:
     return bytes(out)
 
 
-def write_png(path: str, arr: np.ndarray) -> None:
-    """An 8-bit RGB PNG of arr, every row unfiltered, in 64-row IDAT
-    chunks (the machine may have no PIL)."""
-    h, w = arr.shape[:2]
-
-    def chunk(ctype: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + ctype + data
-                + struct.pack(">I", zlib.crc32(ctype + data) & 0xFFFFFFFF))
-
-    rows = np.zeros((h, 1 + 3 * w), np.uint8)       # filter byte 0
-    rows[:, 1:] = arr.reshape(h, 3 * w)
-    z = zlib.compressobj(1)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        for y in range(0, h, 64):
-            data = z.compress(rows[y:y + 64].tobytes())
-            if data:
-                f.write(chunk(b"IDAT", data))
-        f.write(chunk(b"IDAT", z.flush()))
-        f.write(chunk(b"IEND", b""))
-
-
 def write_pfm(path: str, img: np.ndarray) -> None:
     """A little-endian color PFM of float32 img (rows bottom-up)."""
     h, w = img.shape[:2]
@@ -716,22 +726,14 @@ def run_cli(argv, fused: bool):
     HYDRIUM_PALLAS set as `fused` says; returns (exit code, the
     Encoder's counters, the calling thread's stage seconds)."""
     from hydrium_tpu_torch import cli
-    from hydrium_tpu_torch import encoder as E
-
-    made = []
-    real = E.Encoder.__init__
-
-    def spy(self, *a, **k):
-        made.append(self)
-        real(self, *a, **k)
+    from hydrium_tpu_torch.scale import made_encoders
 
     old = os.environ.get("HYDRIUM_PALLAS")
     os.environ["HYDRIUM_PALLAS"] = "1" if fused else "0"
-    E.Encoder.__init__ = spy
     try:
-        rc = cli.main(argv)
+        with made_encoders() as made:
+            rc = cli.main(argv)
     finally:
-        E.Encoder.__init__ = real
         if old is None:
             del os.environ["HYDRIUM_PALLAS"]
         else:
@@ -783,55 +785,25 @@ def make_4k(seed: int = 0) -> np.ndarray:
     return make_4k_noisy(seed)
 
 
-def front_flips(img: np.ndarray, dev) -> tuple:
-    """The card's front integers vs the port's CPU front, LF group (0,0)."""
+def front_flips(px: np.ndarray, dev, kind: str = "uint8") -> tuple:
+    """The card's front integers vs the port's CPU front on the pixels
+    of one LF group (its buffer: the extent rounded up to 256)."""
     import torch
 
     from hydrium_tpu_torch.ops.front import FrontEnd
 
-    px = img[:2048, :2048]
-    kw = dict(buf_h=2048, buf_w=2048, linear_light=False,
-              sample_kind="uint8")
+    h, w = px.shape[:2]
+    kw = dict(buf_h=-(-h // TILE) * TILE, buf_w=-(-w // TILE) * TILE,
+              linear_light=False, sample_kind=kind)
+    px = np.ascontiguousarray(px)
     outs = []
     for d in (dev, torch.device("cpu")):
         fe = FrontEnd.from_tables().to(d)
-        q, lf = fe(torch.as_tensor(px, device=d), 2048, 2048, **kw)
+        q, lf = fe(torch.as_tensor(px, device=d), h, w, **kw)
         outs.append((q.cpu(), lf.cpu()))
     (qg, lg), (qc, lc) = outs
     flips = int((qg != qc).sum().item()) + int((lg != lc).sum().item())
     return flips, qg.numel() + lg.numel()
-
-
-class SyntheticImage:
-    """Lazy [size, size, 3] uint8 image: smooth band-limited base +
-    deterministic per-strip noise, computed on slice access.  Quacks
-    like the ndarray encode_image_multihost/Encoder need (shape, dtype,
-    2-D slicing) without ever materializing the frame."""
-
-    def __init__(self, size: int) -> None:
-        self.shape = (size, size, 3)
-        self.dtype = np.dtype(np.uint8)
-
-    def __getitem__(self, key):
-        ys, xs = key[0], key[1]
-        y0, y1, _ = ys.indices(self.shape[0])
-        x0, x1, _ = xs.indices(self.shape[1])
-        yy = np.arange(y0, y1, dtype=np.float32)[:, None, None]
-        xx = np.arange(x0, x1, dtype=np.float32)[None, :, None]
-        phase = np.array([0.0, 1.3, 2.1], np.float32)
-        base = 128 + 80 * np.sin(xx / 97.0 + phase) * np.cos(yy / 53.0)
-        # coordinate-hashed noise: deterministic for any slice geometry
-        # without generating anything outside the requested window
-        yu = np.arange(y0, y1, dtype=np.uint32)[:, None, None]
-        xu = np.arange(x0, x1, dtype=np.uint32)[None, :, None]
-        cu = np.arange(3, dtype=np.uint32)[None, None, :]
-        h = (yu * np.uint32(2654435761) ^ xu * np.uint32(0x9E3779B9)
-             ^ cu * np.uint32(0x85EBCA6B))
-        h ^= h >> np.uint32(15)
-        h *= np.uint32(0x2C1B3C6D)
-        h ^= h >> np.uint32(12)
-        noise = ((h >> np.uint32(8)) & np.uint32(31)).astype(np.float32) - 16.0
-        return np.clip(base + noise, 0, 255).astype(np.uint8)
 
 
 # sha256 of phase 9's conformance files (conformance_inputs); the
@@ -889,6 +861,7 @@ def check_conformance(scratch: str, smi: str) -> dict:
 
     import hydrium_tpu_torch as H
     from hydrium_tpu_torch import cli
+    from hydrium_tpu_torch.scale import write_png
 
     inputs = conformance_inputs()
     kernel_counts(zero=True)
@@ -930,10 +903,6 @@ def check_conformance(scratch: str, smi: str) -> dict:
             "bytes": {k: len(v) for k, v in files.items()}}
 
 
-def phase8_image(kind: str):
-    return make_4k() if kind == "4k" else SyntheticImage(8192)
-
-
 def kernel_counts(zero: bool = False) -> dict:
     """The kernel wrappers' launch counts (set to 0 first when `zero`)."""
     from hydrium_tpu_torch import bench
@@ -941,11 +910,11 @@ def kernel_counts(zero: bool = False) -> dict:
     return bench.kernel_counts(zero)
 
 
-def multihost_child(addr: str, rank: str, kind: str, fused: str,
-                    out: str) -> int:
+def multihost_child(addr: str, rank: str, out: str) -> int:
     """One of phase 8's two processes: join the gloo group, encode its
-    presets' LF groups on the card, print its wall, counters and kernel
-    launches as one JSON line (process 0 also writes the file)."""
+    presets' LF groups of the 4K image on the card with the fused front,
+    print its wall, counters and kernel launches as one JSON line
+    (process 0 also writes the file)."""
     import torch
 
     from hydrium_tpu_torch import EncodeStats
@@ -956,13 +925,13 @@ def multihost_child(addr: str, rank: str, kind: str, fused: str,
         return 2
     import hydrium_tpu_torch as H
 
-    img = phase8_image(kind)
+    img = make_4k()
     # first use of the card in this process (context, library load,
     # first launches) on a small encode of its own, outside the timing
     t0 = time.perf_counter()
     H.encode_image(np.random.default_rng(64).integers(
         0, 256, (64, 300, 3), dtype=np.uint8), device="cuda",
-        fused_front=fused == "1")
+        fused_front=True)
     torch.cuda.synchronize()
     first_use = time.perf_counter() - t0
     multihost.initialize(addr, 2, int(rank))
@@ -971,7 +940,7 @@ def multihost_child(addr: str, rank: str, kind: str, fused: str,
         stats = EncodeStats()
         t0 = time.perf_counter()
         data = multihost.encode_image_multihost(
-            img, device="cuda", stats=stats, fused_front=fused == "1",
+            img, device="cuda", stats=stats, fused_front=True,
             spool_dir=os.path.dirname(out))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -990,70 +959,16 @@ def multihost_child(addr: str, rank: str, kind: str, fused: str,
     return 0
 
 
-def run_two_processes(kind: str, fused: bool, out: str,
-                      timeout: float = 300) -> list:
+def run_two_processes(out: str, timeout: float = 300) -> list:
     """Phase 8's two-process encode: this script twice as
     --multihost-child, gloo on a free localhost port; returns the two
     JSON records.  Both children are stopped whatever happens."""
-    import socket
+    from hydrium_tpu_torch.scale import free_addr, run_processes
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        addr = f"127.0.0.1:{s.getsockname()[1]}"
-    scratch = os.path.dirname(out)
-    env = dict(os.environ, HYDRIUM_TORCH_WARM_CACHE=os.path.join(
-        scratch, "child_warm.npz"))
-    # output to files: a child blocked on a full pipe while the other
-    # waits for it in a collective would hang both
-    logs = [(os.path.join(scratch, f"{kind}_rank{r}.out"),
-             os.path.join(scratch, f"{kind}_rank{r}.err")) for r in range(2)]
-    procs = []
-    try:
-        for rank, (lo, le) in enumerate(logs):
-            with open(lo, "w") as fo, open(le, "w") as fe:
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__),
-                     "--multihost-child", addr, str(rank), kind,
-                     "1" if fused else "0", out],
-                    stdout=fo, stderr=fe, env=env))
-        for p in procs:
-            p.wait(timeout=timeout)
-        recs = []
-        for p, (lo, le) in zip(procs, logs):
-            if p.returncode != 0:
-                with open(le) as f:
-                    raise AssertionError(f"multihost child exit "
-                                         f"{p.returncode}:\n{f.read()[-3000:]}")
-            with open(lo) as f:
-                recs.append(json.loads(f.read().strip().splitlines()[-1]))
-        return recs
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-
-
-def streaming_encode(img, fused: bool):
-    """The single-process streaming Encoder on the card, LF groups in
-    raster order (strips of 2048 rows read from img).  Returns (bytes,
-    stage seconds)."""
-    import torch
-
-    import hydrium_tpu_torch as H
-
-    h, w = img.shape[:2]
-    enc = H.Encoder(H.ImageMetadata(width=w, height=h), device="cuda",
-                    streaming=True, fused_front=fused)
-    out = bytearray()
-    for ty in range((h + 2047) // 2048):
-        strip = img[ty * 2048:(ty + 1) * 2048, 0:w]
-        for tx in range((w + 2047) // 2048):
-            enc.send_tile(strip[:, tx * 2048:(tx + 1) * 2048], tx, ty)
-            out.extend(enc.take_output())
-    torch.cuda.synchronize()
-    return bytes(out), {k: round(v, 4) for k, v in
-                        enc.stats.stage_seconds.items()}
+    addr = free_addr()
+    return run_processes([[os.path.abspath(__file__), "--multihost-child",
+                           addr, str(rank), out] for rank in range(2)],
+                         os.path.dirname(out), timeout)
 
 
 def check_parallel(img, want: dict, scratch: str, smi: str) -> dict:
@@ -1098,52 +1013,38 @@ def check_parallel(img, want: dict, scratch: str, smi: str) -> dict:
             runs[name] = {"wall_s": wall, "bytes": len(got), "counters": c,
                           "stages_s": stages, "launches": launches}
 
-    for kind, fused, n_lfg in (("4k", True, 4), ("8192", False, 16)):
-        name = f"multihost_{kind}" + ("_fused" if fused else "")
-        out = os.path.join(scratch, name + ".jxl")
-        t0 = time.perf_counter()
-        recs = run_two_processes(kind, fused, out)
-        wall = time.perf_counter() - t0
-        with open(out, "rb") as f:
-            got = f.read()
-        t1 = time.perf_counter()
-        ref, ref_stages = ((want[fused], None) if kind == "4k"
-                           else streaming_encode(phase8_image(kind), fused))
-        t_ref = time.perf_counter() - t1
-        launches = {k: sum(r["launches"][k] for r in recs)
-                    for k in recs[0]["launches"]}
-        counters = [r["counters"] for r in recs]
-        print(f"{name}: two processes over gloo on cuda:0, "
-              f"{'fused' if fused else 'unfused'} front: {len(got)} bytes; "
-              f"wall with process start {wall:.3f} s, encode walls "
-              f"{[round(r['wall_s'], 4) for r in recs]} s (cold codec each;"
-              f" first use of the card before it "
-              f"{[round(r['first_use_s'], 4) for r in recs]} s)"
-              f" on {smi}; {sum(n_dispatches(c) for c in counters)} "
-              f"dispatches, counters {counters}, launches {launches}, "
-              f"stages by process {[r['stages_s'] for r in recs]}"
-              + ("" if kind == "4k" else
-                 f"; single-process streaming Encoder {t_ref:.3f} s, stages "
-                 f"{ref_stages}"),
-              flush=True)
-        assert got == ref, f"{name}: bytes differ from the single-process " \
-            "streaming Encoder's"
-        assert [c.get("lfg_packed") for c in counters] == [n_lfg // 2] * 2
-        assert not any(c.get("lfg_fallback") for c in counters), counters
-        d = sum(n_dispatches(c) for c in counters)
-        assert launches["transport_prep"] == d, launches
-        assert launches["chunk_pack"] == d, launches
-        assert launches["frontend_tokens"] == (d if fused else 0), launches
-        assert launches["frontend_groups"] == 0, launches
-        runs[name] = {"wall_s": wall, "encode_walls_s": [r["wall_s"]
-                                                         for r in recs],
-                      "bytes": len(got), "counters": counters,
-                      "first_use_s": [r["first_use_s"] for r in recs],
-                      "stages_s": [r["stages_s"] for r in recs],
-                      "launches": launches}
-        if kind != "4k":
-            runs[name]["single_process_s"] = t_ref
-            runs[name]["single_process_stages_s"] = ref_stages
+    name = "multihost_4k_fused"
+    out = os.path.join(scratch, name + ".jxl")
+    t0 = time.perf_counter()
+    recs = run_two_processes(out)
+    wall = time.perf_counter() - t0
+    with open(out, "rb") as f:
+        got = f.read()
+    launches = {k: sum(r["launches"][k] for r in recs)
+                for k in recs[0]["launches"]}
+    counters = [r["counters"] for r in recs]
+    print(f"{name}: two processes over gloo on cuda:0, fused front: "
+          f"{len(got)} bytes; wall with process start {wall:.3f} s, encode "
+          f"walls {[round(r['wall_s'], 4) for r in recs]} s (cold codec "
+          f"each; first use of the card before it "
+          f"{[round(r['first_use_s'], 4) for r in recs]} s) on {smi}; "
+          f"{sum(n_dispatches(c) for c in counters)} dispatches, counters "
+          f"{counters}, launches {launches}, stages by process "
+          f"{[r['stages_s'] for r in recs]}", flush=True)
+    assert got == want[True], f"{name}: bytes differ from encode_image's"
+    assert [c.get("lfg_packed") for c in counters] == [2, 2], counters
+    assert not any(c.get("lfg_fallback") for c in counters), counters
+    d = sum(n_dispatches(c) for c in counters)
+    assert launches["transport_prep"] == d, launches
+    assert launches["chunk_pack"] == d, launches
+    assert launches["frontend_tokens"] == d, launches
+    assert launches["frontend_groups"] == 0, launches
+    runs[name] = {"wall_s": wall, "encode_walls_s": [r["wall_s"]
+                                                     for r in recs],
+                  "bytes": len(got), "counters": counters,
+                  "first_use_s": [r["first_use_s"] for r in recs],
+                  "stages_s": [r["stages_s"] for r in recs],
+                  "launches": launches}
 
     cpu_syms, cpu_bytes = dryrun_multichip(8, ["cpu"] * 8)
     kernel_counts(zero=True)
@@ -1213,6 +1114,128 @@ def check_bench(digests: dict, smi: str) -> dict:
     return {"wall_s": wall, "launches": launches}
 
 
+def strip_with_cpu_front(strip: np.ndarray, dev) -> dict:
+    """Phase 11: the strip encoded on the card with the front's integers
+    taken from the port's CPU front (ops/front.py::front_tokens patched,
+    as tests/test_torch_e2e.py patches it to JAX's) must give the CPU
+    encode's bytes; and the card's front against the CPU front on each
+    of the strip's LF groups, within the flip bound."""
+    import torch
+
+    import hydrium_tpu_torch as H
+    from hydrium_tpu_torch import EncodeStats
+    from hydrium_tpu_torch.ops import front as TF
+
+    real = TF.front_tokens
+
+    def cpu_front(front, pixels, *a, **k):
+        out = real(TF.FrontEnd.from_tables(), pixels.cpu(), *a, **k)
+        return {key: v.to(pixels.device) for key, v in out.items()}
+
+    t0 = time.perf_counter()
+    want = H.encode_image(strip, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    TF.front_tokens = cpu_front
+    try:
+        kernel_counts(zero=True)
+        stats = EncodeStats()
+        t0 = time.perf_counter()
+        got = H.encode_image(strip, device="cuda", stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+    finally:
+        TF.front_tokens = real
+    flips = total = 0
+    for x in range(0, strip.shape[1], 2048):
+        f, n = front_flips(strip[:, x:x + 2048], dev, "uint16")
+        flips, total = flips + f, total + n
+    c = dict(stats.counters)
+    return {"bytes": len(got), "equal": got == want, "wall_s": wall,
+            "cpu_wall_s": cpu_wall, "counters": c, "launches": launches,
+            "front_flips": flips, "front_values": total}
+
+
+def check_scale(img16: np.ndarray, dev, smi: str) -> dict:
+    """Phase 11 (module docstring): hydrium_tpu_torch/scale.py's configs
+    4 and 5 on the card.  Returns {path: record}, each with the launches
+    of its counted run."""
+    from hydrium_tpu_torch import scale
+    from hydrium_tpu_torch.ops.frontend import default_fused
+
+    runs = {}
+    for fused in (False, True):
+        name = "config4" + ("_fused" if fused else "")
+        r = scale.config4(device="cuda", fused_front=fused)
+        c, d, launches = r["counters"], r["dispatches"], r["launches"]
+        print(f"{name}: 7680x4320 u16 one-frame, "
+              f"{'fused' if fused else 'default'} front: {r['bytes']} bytes "
+              f"({r['bpp']:.4f} bpp), warm {r['seconds']:.3f} s "
+              f"({r['mpix_s']:.3f} Mpix/s), cold {r['seconds_cold']:.3f} s, "
+              f"on {smi}; PSNR {r['psnr_db']} ({r['psnr_note']}); counters "
+              f"{c}, launches {launches}; stages {r['stage_seconds']}; "
+              f"sha256 {r['sha256']}", flush=True)
+        assert r["codestream_signature"] and not r["level10_container"], r
+        assert c.get("lfg_packed") == 12 and not c.get("lfg_fallback"), c
+        assert not c.get("codec_bootstraps"), c
+        assert launches["transport_prep"] == launches["chunk_pack"] == d
+        assert launches["frontend_tokens"] == (d if fused else 0), launches
+        assert launches["frontend_groups"] == 0, launches
+        runs[name] = r
+
+    strip = np.ascontiguousarray(img16[4096:])
+    r = strip_with_cpu_front(strip, dev)
+    print(f"bottom strip 224x7680 u16 on the card, front from the CPU "
+          f"front: {r['bytes']} bytes, equal to the CPU file: {r['equal']}; "
+          f"{r['wall_s']:.3f} s on {smi} (CPU {r['cpu_wall_s']:.3f} s); "
+          f"counters {r['counters']}, launches {r['launches']}; card front "
+          f"vs CPU front {r['front_flips']} flips of {r['front_values']} "
+          f"({r['front_flips'] / r['front_values']:.2e}, bound "
+          f"{FRONT_FLIP_TOL:g})", flush=True)
+    assert r["equal"], "bottom strip: card bytes differ from the CPU's"
+    assert r["counters"].get("lfg_packed") == 4, r["counters"]
+    d = n_dispatches(r["counters"])
+    assert r["launches"]["transport_prep"] == d, r["launches"]
+    assert r["launches"]["chunk_pack"] == d, r["launches"]
+    assert r["front_flips"] <= FRONT_FLIP_TOL * r["front_values"], r
+    runs["strip_cpu_front"] = r
+
+    w, h = 16384, 16385
+    cli = scale.config5_cli(w, h, device="cuda", timeout=600)
+    multi = scale.config5_multi(
+        w, h, device="cuda", timeout=600,
+        reference={k: cli[k] for k in ("sha256", "bytes")})
+    fused = default_fused()
+    for name, r in (("config5_cli", cli), ("config5_multi", multi)):
+        procs = r.get("per_process", [dict(r, wall_s=r.get("seconds"))])
+        print(f"{name}: {w}x{h} u8 ({r['mpix']:.1f} Mpix), {r['bytes']} "
+              f"bytes, level-10 container {r['level10_container']}, "
+              f"{r['mpix_s']:.3f} Mpix/s on {smi}; walls "
+              f"{[round(p['wall_s'], 3) for p in procs]} s"
+              f", peak RSS {[round(p['peak_rss_mb'], 1) for p in procs]} "
+              f"MiB, growth {[round(p['rss_growth_mb'], 1) for p in procs]} "
+              f"MiB (bound {r['raw_mb'] / 2:.1f}); dispatches "
+              f"{r['dispatches']}, launches {r['launches']}"
+              + (f"; PNG written in {r['png_write_s']:.3f} s"
+                 if name == "config5_cli" else
+                 f"; equal to config5_cli's file: {r['byte_identical']}"),
+              flush=True)
+        assert r["level10_container"], f"{name}: no level-10 prefix"
+        for p in procs:
+            assert p["rss_growth_mb"] <= r["raw_mb"] / 2, (name, p)
+        assert r["launches"]["transport_prep"] == r["dispatches"], r
+        assert r["launches"]["chunk_pack"] == r["dispatches"], r
+        assert r["launches"]["frontend_tokens"] == (
+            r["dispatches"] if fused else 0), r["launches"]
+        runs[name] = r
+    assert cli["counters"].get("lfg_packed") == 72, cli["counters"]
+    assert not cli["counters"].get("lfg_fallback"), cli["counters"]
+    assert sum(p["counters"].get("lfg_packed", 0)
+               for p in multi["per_process"]) == 72, multi
+    assert multi["byte_identical"], "config5_multi: bytes differ from the CLI's"
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -1226,6 +1249,7 @@ def main() -> int:
     from hydrium_tpu_torch import EncodeStats
     from hydrium_tpu_torch import encoder as torch_encoder
     from hydrium_tpu_torch.ops import _kernels
+    from hydrium_tpu_torch.scale import config4_image, write_png
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1249,8 +1273,9 @@ def main() -> int:
 
     # phase 3: kernels vs plain twins
     img = make_4k()
+    img16 = config4_image()
     results = check_kernels(dev)
-    results.extend(check_frontend(img, dev))
+    results.extend(check_frontend(img, img16, dev))
 
     # phase 4: one-frame mode
     kernel_counts(zero=True)
@@ -1304,7 +1329,7 @@ def main() -> int:
     assert fused_launches["frontend_groups"] == 0, fused_launches
     assert fused_data[:2] == b"\xff\x0a"
 
-    flips, total = front_flips(img, dev)
+    flips, total = front_flips(img[:2048, :2048], dev)
     print(f"front flips card vs CPU (LF group 0,0): {flips} of {total} "
           f"({flips / total:.2e}, bound {FRONT_FLIP_TOL:g})", flush=True)
     assert flips <= FRONT_FLIP_TOL * total, (flips, total)
@@ -1484,6 +1509,9 @@ def main() -> int:
 
     # phase 10: the bench on the card
     bench_run = check_bench(digests, smi)
+
+    # phase 11: BASELINE configs 4 and 5
+    scale_runs = check_scale(img16, dev, smi)
     scratch.cleanup()
 
     # "launches" is the tiled run with the fused front, the main path:
@@ -1497,6 +1525,7 @@ def main() -> int:
     paths.update({k: v["launches"] for k, v in parallel.items()})
     paths["conformance"] = conformance["launches"]
     paths["bench_rows"] = bench_run["launches"]
+    paths.update({k: v["launches"] for k, v in scale_runs.items()})
     for r in results:
         r["launches"] = tiled_launches[r["name"]]
         r["on_main_path"] = r["name"] != "frontend_groups"
@@ -1514,7 +1543,9 @@ def main() -> int:
         "unfused_warm_s": t_tiled_unfused, "chunks": n_chunks,
         "edge_tiles": n_edge, "counters": dict(tc)}, "cli": cli_runs,
         "overlap": overlap, "parallel": parallel,
-        "conformance": conformance}))
+        "conformance": conformance, "scale": {
+            k: {f: v for f, v in r.items() if f != "launches"}
+            for k, r in scale_runs.items()}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1524,5 +1555,5 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-child"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        sys.exit(multihost_child(*sys.argv[2:7]))
+        sys.exit(multihost_child(*sys.argv[2:5]))
     sys.exit(main())

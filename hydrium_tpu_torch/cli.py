@@ -84,6 +84,9 @@ def _open_input(path: str, is_pfm: bool):
 
 
 def _peak_rss_mb() -> float:
+    """This process's peak resident size, MiB: VmHWM of /proc/self/status,
+    or getrusage's ru_maxrss (KiB on Linux) where the kernel reports no
+    VmHWM."""
     try:
         with open("/proc/self/status") as f:
             for line in f:
@@ -91,7 +94,9 @@ def _peak_rss_mb() -> float:
                     return int(line.split()[1]) / 1024.0
     except OSError:
         pass
-    return 0.0
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
 
 
 def _cap_malloc_arenas(n: int = 2) -> None:

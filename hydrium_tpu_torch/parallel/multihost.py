@@ -94,26 +94,31 @@ def with_retry(fn: Callable, attempts: int = 3, backoff: float = 0.5):
 
 
 def gather_bytes_to_host0(payload: bytes) -> Optional[list]:
-    """All-gather variable-length byte strings across processes; returns
-    the list (by rank) on process 0, None elsewhere.  Two all_gathers
-    over gloo: the lengths, then u8 buffers padded to the longest (gloo
-    gathers equal sizes only)."""
+    """Gather variable-length byte strings to process 0; returns the
+    list (by rank) on process 0, None elsewhere.  Point to point over
+    gloo: every other process sends its length, then its bytes, and
+    process 0 receives them one process at a time, so that only process
+    0 holds the others' bytes, each once and unpadded."""
     n = process_count()
     if n == 1:
         return [payload]
     import torch.distributed as dist
 
-    lengths = [torch.zeros(1, dtype=torch.int64) for _ in range(n)]
-    dist.all_gather(lengths, torch.tensor([len(payload)], dtype=torch.int64))
-    cap = max(int(t) for t in lengths)
-    buf = torch.zeros(cap, dtype=torch.uint8)
-    buf[:len(payload)] = torch.from_numpy(
-        np.frombuffer(payload, np.uint8).copy())
-    bufs = [torch.empty(cap, dtype=torch.uint8) for _ in range(n)]
-    dist.all_gather(bufs, buf)
     if process_index() != 0:
+        dist.send(torch.tensor([len(payload)], dtype=torch.int64), dst=0)
+        if payload:
+            dist.send(torch.frombuffer(bytearray(payload), dtype=torch.uint8),
+                      dst=0)
         return None
-    return [b[:int(ln)].numpy().tobytes() for b, ln in zip(bufs, lengths)]
+    out = [payload]
+    for rank in range(1, n):
+        length = torch.zeros(1, dtype=torch.int64)
+        dist.recv(length, src=rank)
+        buf = torch.empty(int(length), dtype=torch.uint8)
+        if len(buf):
+            dist.recv(buf, src=rank)
+        out.append(buf.numpy().tobytes())
+    return out
 
 
 def _pack_sections(lf_secs, hf_secs, freqs: dict) -> bytes:
@@ -308,7 +313,9 @@ def encode_image_multihost(image, *, linear_light: bool = False,
     hf.close()   # sections fully materialized above; drop the spool now
 
     payload = _pack_sections(lf_secs, hf_secs, my_freqs)
+    del lf_secs, hf_secs
     gathered = gather_bytes_to_host0(payload)
+    del payload
     if gathered is None:
         return None
 
@@ -316,8 +323,9 @@ def encode_image_multihost(image, *, linear_light: bool = False,
     all_lf: dict = {}
     all_hf: dict = {}
     freqs = [None] * hf._num_clusters
-    for blob in gathered:
-        part_lf, part_hf, part_freqs = _unpack_sections(blob)
+    while gathered:
+        # each blob is dropped once its sections are out
+        part_lf, part_hf, part_freqs = _unpack_sections(gathered.pop(0))
         all_lf.update(part_lf)
         all_hf.update(part_hf)
         for c, f in part_freqs.items():
@@ -328,26 +336,39 @@ def encode_image_multihost(image, *, linear_light: bool = False,
     main = new_bitwriter()
     headers.write_image_header(main, w, h, meta.level10)
     write_frame_header(main, geo, True)
-    asm = _FrameAssembler(geo.toc_size > 1)
-    write_lf_global(asm.working)
-    asm.end_section()
-    for lfid in range(n):
-        data, tail_val, tail_bits = all_lf[lfid]
-        asm.working.append_bytes(data)
-        asm.working.write(tail_val, tail_bits)
-        asm.end_section()
-    write_hf_global_fixed_las(asm.working, hf.cluster_map,
+    lf_global, hf_global = new_bitwriter(), new_bitwriter()
+    write_lf_global(lf_global)
+    write_hf_global_fixed_las(hf_global, hf.cluster_map,
                               hf._num_clusters, num_presets, freqs,
                               geo.num_frame_groups,
                               StreamingHFStream.FIXED_LAS)
-    asm.end_section()
-    for key in sorted(all_hf):
-        data, tail_val, tail_bits = all_hf[key]
-        asm.working.append_bytes(data)
-        asm.working.write(tail_val, tail_bits)
-        asm.end_section()
+    sections = ([lf_global.export_raw()]
+                + [all_lf.pop(lfid) for lfid in range(n)]
+                + [hf_global.export_raw()]
+                + [all_hf.pop(key) for key in sorted(all_hf)])
+    asm = _FrameAssembler(geo.toc_size > 1)
+    if not asm.multi_section:
+        # one group: the sections share bytes, so they go through the
+        # bit writer (a frame this small holds nothing large)
+        for data, tail_val, tail_bits in sections:
+            asm.working.append_bytes(data)
+            asm.working.write(tail_val, tail_bits)
+        asm.write_toc_sizes(main)
+        return main.finalize() + asm.working.finalize()
+    # each section padded to a byte, the TOC from their sizes, and the
+    # file joined once: process 0 holds the sections and the file only
+    parts = []
+    for data, tail_val, tail_bits in sections:
+        parts.append(data)
+        if tail_bits:
+            parts.append(bytes([tail_val & ((1 << tail_bits) - 1)]))
+        asm.section_endpos.append(
+            (asm.section_endpos[-1] if asm.section_endpos else 0)
+            + len(data) + (1 if tail_bits else 0))
+    del sections
     asm.write_toc_sizes(main)
-    return main.finalize() + asm.working.finalize()
+    parts.insert(0, main.finalize())
+    return b"".join(parts)
 
 
 def main(argv=None) -> int:

@@ -271,6 +271,13 @@ FRONT_SHAPES = [
     ("uint16", False, 300, 520, (512, 768), (320, 544)),
     ("float32", True, 200, 300, (256, 512), (224, 320)),
     ("uint8", False, 112, 256, (256, 256), (128, 256)),        # edge tile
+    # 16-bit samples at the LF groups of a 7680x4320 frame: a whole one
+    # (G = 64), the right column (G = 48), the bottom row (224 of 256
+    # rows uploaded, G = 8) and the corner (G = 6)
+    ("uint16", False, 2048, 2048, (2048, 2048), (2048, 2048)),
+    ("uint16", False, 2048, 1536, (2048, 1536), (2048, 1536)),
+    ("uint16", False, 224, 2048, (256, 2048), (224, 2048)),
+    ("uint16", False, 224, 1536, (256, 1536), (224, 1536)),
 ]
 # and a saturating f32 linear upload (an edge tile), for the exact check
 # only: summing +-1e10 cube roots in another order moves q by far more
@@ -475,6 +482,27 @@ def test_card_encode_equals_cpu_encode_with_shared_front(cuda, monkeypatch):
     assert stats.counters["lfg_packed"] == 2
     assert TT.transport_prep.launches - launches[0] == 2
     assert TB.pack_chunks.launches - launches[1] == 2
+
+
+def test_card_u16_encode_equals_cpu_encode_with_shared_front(cuda,
+                                                            monkeypatch):
+    """16-bit samples through pinned staging, the upload and the kernels:
+    with the front's integers from the CPU front, the card's bytes equal
+    the CPU's, for a full LF group beside a 224-row one."""
+    real = TF.front_tokens
+
+    def cpu_front(front, pixels, *a, **k):
+        out = real(TF.FrontEnd.from_tables(), pixels.cpu(), *a, **k)
+        return {key: v.to(pixels.device) for key, v in out.items()}
+
+    monkeypatch.setattr(TF, "front_tokens", cpu_front)
+    img = np.random.default_rng(16).integers(0, 65536, (224, 3000, 3),
+                                             dtype=np.uint16)
+    want = hydrium_tpu_torch.encode_image(img, device="cpu")
+    stats = EncodeStats()
+    got = hydrium_tpu_torch.encode_image(img, device="cuda", stats=stats)
+    assert got == want
+    assert stats.counters["lfg_packed"] == 2
 
 
 def test_card_tiled_encode_equals_cpu_encode_with_shared_front(cuda,

@@ -118,6 +118,32 @@ def test_bench_loads_neither_jax_nor_the_jax_package(tmp_path):
     assert "hydrium_tpu_torch/bench.py" in names
 
 
+def test_scale_loads_neither_jax_nor_the_jax_package(tmp_path):
+    """hydrium_tpu_torch.scale's config 4 and the single-process
+    reference of config 5 on the CPU, at small sizes."""
+    code = ("import sys\n"
+            "from hydrium_tpu_torch import scale\n"
+            "r = scale.config4(64, 300, device='cpu')\n"
+            "assert r['codestream_signature'], r\n"
+            "ref = scale._streaming_reference(scale.SyntheticImage(300, 64),"
+            " scale.resolve_device('cpu'), sys.argv[1])\n"
+            "assert ref['bytes'] > 0, ref\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('hydrium_tpu', 'jax', "
+            "'jaxlib'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+               HYDRIUM_TORCH_WARM_CACHE=str(tmp_path / "warm.npz"))
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == "ok"
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert "hydrium_tpu_torch/scale.py" in names
+
+
 def test_parallel_modules_are_scanned():
     names = {p.relative_to(REPO).as_posix() for p in _port_files()}
     for mod in ("multihost", "driver", "shard", "dryrun"):
