@@ -58,13 +58,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    exit 0, the signature, bytes equal to encode_image on the same array
    on the card, every dispatch packed, each kernel launched as often as
    the dispatches need, decode PSNR where libjxl loads;
-7. overlap: the one-frame and the tiled encode (fused front) with
-   HYDRIUM_INFLIGHT=0 (each LF group or unit drained before the next is
-   dispatched) and with the default window: equal bytes; both warm
-   walls, the calling thread's blocked time (stage fetch_wait) and the
-   stage seconds, with the card's name and power limit; and
-   BufferedEncoder with a 1 MiB caller buffer over the one-frame encode:
-   the same bytes;
+7. overlap and the dispatch-preparation pool: the one-frame and the
+   tiled encode (fused front) with HYDRIUM_INFLIGHT=0 (each LF group or
+   unit drained before the next is dispatched) and 3 (the default),
+   each with the stats' timeline on.  Checks: each file's sha256 equals
+   phase 4's (one-frame, fused) or phase 5's (tiled); every unit's
+   dispatch[tag] event ran on a "hyd-prep" worker.  Printed with the
+   card's name and power limit: the warm walls, the median wall of one
+   send_tile (send_tile_batch) call, the stages dispatch (the calling
+   thread's share), prepare (the workers' upload and enqueue, summed
+   over threads) and fetch_wait (the calling thread's blocked time),
+   and every stage; then BufferedEncoder with a 1 MiB caller buffer
+   over the one-frame encode: the same bytes;
 8. multi-device and multi-process: encode_image_sharded of the 4K image
    over ["cuda:0"] and ["cuda:0", "cuda:0"], unfused and fused, each
    equal to encode_image's bytes with the same front; two processes over
@@ -143,6 +148,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -683,9 +689,11 @@ def check_frontend(img: np.ndarray, img16: np.ndarray, dev):
     return out
 
 
-def encode_tiled(img: np.ndarray, fused: bool, stats) -> bytes:
+def encode_tiled(img: np.ndarray, fused: bool, stats,
+                 walls: Optional[list] = None) -> bytes:
     """256^2 tiles sent one row at a time through send_tile_batch (as
-    bench.py sends tiled mode)."""
+    bench.py sends tiled mode); the wall of each send_tile_batch call
+    goes to `walls` when one is given."""
     import torch
 
     import hydrium_tpu_torch as H
@@ -700,7 +708,10 @@ def encode_tiled(img: np.ndarray, fused: bool, stats) -> bytes:
         entries = [(img[ty * TILE:(ty + 1) * TILE,
                         tx * TILE:(tx + 1) * TILE], tx, ty)
                    for tx in range((w + TILE - 1) // TILE)]
+        t0 = time.perf_counter()
         enc.send_tile_batch(entries, sample_fmt=H.SampleFormat.UINT8)
+        if walls is not None:
+            walls.append(time.perf_counter() - t0)
         out.extend(enc.take_output())
     torch.cuda.synchronize()
     return bytes(out)
@@ -744,37 +755,118 @@ def run_cli(argv, fused: bool):
     return rc, dict(enc.stats.counters), dict(enc.stats.stage_seconds)
 
 
-def encode_one_frame(img: np.ndarray, fused: bool, stats) -> bytes:
+def encode_one_frame(img: np.ndarray, fused: bool, stats,
+                     walls: Optional[list] = None) -> bytes:
+    """Encoder.send_tile per 2048^2 LF group, take_output after each, as
+    encode_image sends them; the wall of each send_tile call goes to
+    `walls` when one is given."""
     import torch
 
     import hydrium_tpu_torch as H
 
-    data = H.encode_image(img, device="cuda", stats=stats, fused_front=fused)
+    h, w = img.shape[:2]
+    enc = H.Encoder(H.ImageMetadata(width=w, height=h), device="cuda",
+                    fused_front=fused)
+    enc.stats = stats
+    out = bytearray()
+    for ty in range(-(-h // 2048)):
+        for tx in range(-(-w // 2048)):
+            t0 = time.perf_counter()
+            enc.send_tile(img[ty * 2048:(ty + 1) * 2048,
+                              tx * 2048:(tx + 1) * 2048], tx, ty,
+                          sample_fmt=H.SampleFormat.UINT8)
+            if walls is not None:
+                walls.append(time.perf_counter() - t0)
+            out.extend(enc.take_output())
     torch.cuda.synchronize()
-    return data
+    return bytes(out)
 
 
-def timed_with_window(encode, img, inflight):
-    """encode(img, True, stats) with HYDRIUM_INFLIGHT set to `inflight`
-    (None: unset, the default): one warm-up, then one timed run.
-    Returns (bytes, wall seconds, stage seconds)."""
+def timed_with_window(encode, img, inflight: int):
+    """encode(img, True, stats) with HYDRIUM_INFLIGHT set to `inflight`:
+    one warm-up, then one timed run with the stats' timeline on.
+    Returns (bytes, wall seconds, its EncodeStats, the walls of its
+    send calls)."""
     from hydrium_tpu_torch import EncodeStats
 
     old = os.environ.pop("HYDRIUM_INFLIGHT", None)
-    if inflight is not None:
-        os.environ["HYDRIUM_INFLIGHT"] = str(inflight)
+    os.environ["HYDRIUM_INFLIGHT"] = str(inflight)
     try:
         encode(img, True, EncodeStats())
         stats = EncodeStats()
+        stats.enable_timeline()
+        sends = []
         t0 = time.perf_counter()
-        data = encode(img, True, stats)
+        data = encode(img, True, stats, sends)
         wall = time.perf_counter() - t0
     finally:
         os.environ.pop("HYDRIUM_INFLIGHT", None)
         if old is not None:
             os.environ["HYDRIUM_INFLIGHT"] = old
-    return data, wall, {k: round(v, 4)
-                        for k, v in stats.stage_seconds.items()}
+    return data, wall, stats, sends
+
+
+def check_overlap(img: np.ndarray, digests: dict, data: bytes,
+                  smi: str) -> dict:
+    """Phase 7 (see the module docstring).  digests: phase 4's and 5's
+    sha256 by file; data: phase 4's one-frame file (default front).
+    Returns the phase's figures by mode and window."""
+    import hydrium_tpu_torch as H
+
+    overlap = {}
+    for name, encode, digest in (
+            ("one_frame", encode_one_frame, digests["one_frame_fused"]),
+            ("tiled", encode_tiled, digests["tiled_fused"])):
+        overlap[name] = {}
+        for window in (0, 3):
+            got, wall, pstats, sends = timed_with_window(encode, img, window)
+            assert hashlib.sha256(got).hexdigest() == digest, (
+                f"{name}: HYDRIUM_INFLIGHT={window} bytes differ from "
+                "phases 4 and 5")
+            preps = [thread for ev, _t0, _t1, thread in pstats.events
+                     if ev.startswith("dispatch[")]
+            assert len(preps) == pstats.counters.get("lfg_packed", 0), preps
+            assert all(t.startswith("hyd-prep") for t in preps), preps
+            sec = pstats.stage_seconds
+            run = {"wall_s": wall, "send_calls": len(sends),
+                   "send_median_s": statistics.median(sends),
+                   "dispatch_s": sec.get("dispatch", 0.0),
+                   "prepare_s": sec.get("prepare", 0.0),
+                   "fetch_wait_s": sec.get("fetch_wait", 0.0),
+                   "stages_s": {k: round(v, 4) for k, v in sec.items()}}
+            overlap[name][f"inflight_{window}"] = run
+            print(f"overlap {name} 4K, fused front, warm, "
+                  f"HYDRIUM_INFLIGHT={window}, on {smi}: wall {wall:.4f} s; "
+                  f"median send call {run['send_median_s'] * 1e3:.2f} ms "
+                  f"of {len(sends)}; stage dispatch (caller) "
+                  f"{run['dispatch_s']:.4f} s, prepare (hyd-prep workers) "
+                  f"{run['prepare_s']:.4f} s, fetch_wait "
+                  f"{run['fetch_wait_s']:.4f} s; {len(preps)} dispatches "
+                  f"enqueued on {sorted(set(preps))}; stages "
+                  f"{run['stages_s']}; sha256 equal to phases 4 and 5",
+                  flush=True)
+    want = encode_one_frame(img, False, H.EncodeStats())
+    assert want == data, "one-frame bytes changed within the run"
+    h, w = img.shape[:2]
+    be = H.BufferedEncoder(H.Encoder(H.ImageMetadata(width=w, height=h)))
+    buf = bytearray(1 << 20)
+    pushed = bytearray()
+    swaps = 0
+    be.provide_output_buffer(buf)
+    for ty in range(-(-h // 2048)):
+        for tx in range(-(-w // 2048)):
+            st = be.send_tile(img[ty * 2048:(ty + 1) * 2048,
+                                  tx * 2048:(tx + 1) * 2048], tx, ty)
+            while st == H.NEED_MORE_OUTPUT:
+                swaps += 1
+                pushed.extend(buf[:be.release_output_buffer()])
+                be.provide_output_buffer(buf)
+                st = be.pump()
+    pushed.extend(buf[:be.release_output_buffer()])
+    assert be.finished and bytes(pushed) == data, "BufferedEncoder bytes"
+    print(f"BufferedEncoder, 1 MiB buffer: {swaps} swaps, {len(pushed)} "
+          f"bytes, equal to encode_image's", flush=True)
+    return overlap
 
 
 def make_4k(seed: int = 0) -> np.ndarray:
@@ -1459,46 +1551,8 @@ def main() -> int:
             print(f"{name} decode PSNR: {djxl.psnr(ref, dec):.4f} dB",
                   flush=True)
 
-    # phase 7: overlap on against overlap off (HYDRIUM_INFLIGHT=0)
-    overlap = {}
-    for name, encode in (("one_frame", encode_one_frame),
-                         ("tiled", encode_tiled)):
-        off, off_s, off_stages = timed_with_window(encode, img, 0)
-        on, on_s, on_stages = timed_with_window(encode, img, None)
-        assert on == off, f"{name}: bytes differ with HYDRIUM_INFLIGHT=0"
-        overlap[name] = {
-            "inflight_0_s": off_s, "default_s": on_s,
-            "inflight_0_fetch_wait_s": off_stages.get("fetch_wait", 0.0),
-            "default_fetch_wait_s": on_stages.get("fetch_wait", 0.0),
-            "inflight_0_stages_s": off_stages, "default_stages_s": on_stages}
-        print(f"overlap {name} 4K, fused front, warm, on {smi}: "
-              f"HYDRIUM_INFLIGHT=0 {off_s:.3f} s (calling thread blocked "
-              f"{off_stages.get('fetch_wait', 0.0):.3f} s, stages "
-              f"{off_stages}); default window {on_s:.3f} s (blocked "
-              f"{on_stages.get('fetch_wait', 0.0):.3f} s, stages "
-              f"{on_stages}); equal bytes", flush=True)
-    want = encode_one_frame(img, False, EncodeStats())
-    assert want == data, "one-frame bytes changed within the run"
-    be = hydrium_tpu_torch.BufferedEncoder(hydrium_tpu_torch.Encoder(
-        hydrium_tpu_torch.ImageMetadata(width=img.shape[1],
-                                        height=img.shape[0])))
-    buf = bytearray(1 << 20)
-    pushed = bytearray()
-    swaps = 0
-    be.provide_output_buffer(buf)
-    for ty in range(2):
-        for tx in range(2):
-            st = be.send_tile(img[ty * 2048:(ty + 1) * 2048,
-                                  tx * 2048:(tx + 1) * 2048], tx, ty)
-            while st == hydrium_tpu_torch.NEED_MORE_OUTPUT:
-                swaps += 1
-                pushed.extend(buf[:be.release_output_buffer()])
-                be.provide_output_buffer(buf)
-                st = be.pump()
-    pushed.extend(buf[:be.release_output_buffer()])
-    assert be.finished and bytes(pushed) == data, "BufferedEncoder bytes"
-    print(f"BufferedEncoder, 1 MiB buffer: {swaps} swaps, {len(pushed)} "
-          f"bytes, equal to encode_image's", flush=True)
+    # phase 7: overlap on against overlap off, and the prep pool
+    overlap = check_overlap(img, digests, data, smi)
 
     # phase 8: multi-device and multi-process
     parallel = check_parallel(img, {False: data, True: fused_data},

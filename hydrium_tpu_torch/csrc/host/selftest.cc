@@ -1,0 +1,383 @@
+// Standalone self-test of the port's native serialization plane
+// (serializer.cc beside it), built with it under ASAN/UBSAN by
+// tests/test_torch_native_sanitized.py.  Exercises every hot path with
+// randomized streams: LZ77 tokenization, prefix encode (simple + complex
+// codes, nested cluster maps), the packed-stream context walker, ANS
+// table build and backwards emission (single- and multi-threaded), the
+// LF residual decoder, and the PNG row defilter against the PNG
+// specification's filter definitions.
+
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <vector>
+
+extern "C" {
+struct HydWriter;
+struct HydStream;
+struct HydHF;
+HydWriter* hyd_writer_new();
+void hyd_writer_free(HydWriter*);
+long hyd_writer_bit_size(HydWriter*);
+void hyd_writer_write(HydWriter*, uint64_t, int);
+long hyd_writer_copy(HydWriter*, uint8_t*, long, uint32_t*, int*);
+HydStream* hyd_stream_new(const uint8_t*, long, uint32_t, int, int, int, int,
+                          int);
+void hyd_stream_free(HydStream*);
+void hyd_stream_send_mono(HydStream*, uint32_t, const uint32_t*, long);
+int hyd_stream_prefix_finalize(HydStream*, HydWriter*);
+HydHF* hyd_hf_new(long);
+void hyd_hf_free(HydHF*);
+void hyd_hf_add_group(HydHF*, const uint16_t*, const uint8_t*,
+                      const uint32_t*, const uint8_t*, const int32_t*, long,
+                      uint32_t);
+int hyd_hf_add_lfg_packed(HydHF*, const uint32_t*, const uint32_t*,
+                          const uint16_t*, int, const uint8_t*, uint32_t,
+                          long, long, long, long, const int64_t*,
+                          const int64_t*, const int64_t*, int);
+int hyd_hf_prepare(HydHF*);
+int hyd_hf_encode_all(HydHF*, int, HydWriter**, int);
+int hyd_hf_write_header(HydHF*, const uint8_t*, long, HydWriter*);
+void hyd_hf_force_las(HydHF*, int);
+long hyd_lf_decode(const uint32_t*, const uint16_t*, long, long, uint32_t*);
+int hyd_png_unfilter(uint8_t*, const uint8_t*, long, int, int);
+}
+
+static uint64_t rng_state = 0x9E3779B97F4A7C15ull;
+static uint32_t rnd() {
+  rng_state ^= rng_state << 13;
+  rng_state ^= rng_state >> 7;
+  rng_state ^= rng_state << 17;
+  return (uint32_t)(rng_state >> 32);
+}
+
+static void test_prefix_streams() {
+  for (int iter = 0; iter < 20; iter++) {
+    uint8_t cm[1] = {0};
+    HydStream* s = hyd_stream_new(cm, 1, (iter & 1) ? (1u << 14) : 0,
+                                  iter & 1, 1, 7, 1, 1);
+    std::vector<uint32_t> syms(1 + rnd() % 5000);
+    for (auto& v : syms) {
+      v = rnd() % ((iter % 3 == 0) ? 4u : 100000u);
+      if (rnd() % 3 == 0 && &v != syms.data()) v = (&v)[-1];  // runs
+    }
+    hyd_stream_send_mono(s, 0, syms.data(), syms.size());
+    HydWriter* w = hyd_writer_new();
+    if (hyd_stream_prefix_finalize(s, w) != 0) {
+      fprintf(stderr, "prefix finalize failed\n");
+      exit(1);
+    }
+    hyd_writer_free(w);
+    hyd_stream_free(s);
+  }
+  printf("prefix streams ok\n");
+}
+
+// build cluster map like tables.hf_cluster_map(1)
+static std::vector<uint8_t> hf_map() {
+  std::vector<uint8_t> cm(1485);
+  for (int j = 0; j < 1485; j++)
+    cm[j] = j < 111 ? j % 3 : 3 + (j - 111) % 6;
+  return cm;
+}
+
+static void test_hf_padded_and_packed() {
+  auto cm = hf_map();
+  const int blocks = 1024;
+  std::vector<uint16_t> tokens(blocks * 3 * 64);
+  std::vector<uint8_t> clusters(blocks * 3 * 64);
+  std::vector<uint32_t> residues(blocks * 3 * 64);
+  std::vector<uint8_t> rbits(blocks * 3 * 64);
+  std::vector<int32_t> valid(blocks * 3);
+  for (int b = 0; b < blocks * 3; b++) {
+    valid[b] = rnd() % 65;
+    for (int k = 0; k < 64; k++) {
+      int i = b * 64 + k;
+      tokens[i] = rnd() % 40;
+      clusters[i] = cm[rnd() % 1485];
+      rbits[i] = tokens[i] >= 16 ? ((tokens[i] - 16) >> 1) + 3 : 0;
+      residues[i] = rbits[i] ? (rnd() & ((1u << rbits[i]) - 1)) : 0;
+    }
+  }
+  HydHF* h = hyd_hf_new(9);
+  for (int g = 0; g < 8; g++)
+    hyd_hf_add_group(h, tokens.data(), clusters.data(), residues.data(),
+                     rbits.data(), valid.data(), blocks, 0);
+  if (hyd_hf_prepare(h) != 0) {
+    fprintf(stderr, "prepare failed\n");
+    exit(1);
+  }
+  std::vector<HydWriter*> ws(8);
+  for (auto& w : ws) w = hyd_writer_new();
+  if (hyd_hf_encode_all(h, 0, ws.data(), 4) != 0) {
+    fprintf(stderr, "encode_all failed\n");
+    exit(1);
+  }
+  HydWriter* hw = hyd_writer_new();
+  if (hyd_hf_write_header(h, cm.data(), cm.size(), hw) != 0) {
+    fprintf(stderr, "header failed\n");
+    exit(1);
+  }
+  hyd_writer_free(hw);
+  for (auto* w : ws) hyd_writer_free(w);
+  hyd_hf_free(h);
+  printf("hf padded ok\n");
+
+  // packed walker (format v3): Huffman-coded tokens via a fixed-length
+  // transport code (all symbols 6 bits, canonical LSB-first = reversed
+  // 6-bit symbol) + residue bits; no valid-length sidecar -- the walker
+  // reconstructs symbol counts from the decoded nonzero counts.  The
+  // streams are word-aligned chunked: tokens realign every 64 block-
+  // channels, residues every 32 (ops/pipeline.py format v3).
+  auto rev6 = [](uint32_t v) {
+    uint32_t r = 0;
+    for (int i = 0; i < 6; i++) r |= ((v >> i) & 1) << (5 - i);
+    return r;
+  };
+  // 9 classes, all using the same fixed 6-bit code (12-bit decode LUTs,
+  // format v4: transport codes are <= 12 bits)
+  std::vector<uint16_t> lut(9 * 4096);
+  for (int k = 0; k < 9; k++)
+    for (uint32_t idx = 0; idx < 4096; idx++)
+      lut[k * 4096 + idx] = (uint16_t)(rev6(idx & 63) | (6 << 8));
+  std::vector<uint32_t> tw, rw;
+  uint64_t tcache = 0, rcache = 0;
+  int tbits = 0, rbitsn = 0;
+  auto put = [](std::vector<uint32_t>& out, uint64_t& cache, int& nbits,
+                uint32_t v, int n) {
+    cache |= (uint64_t)v << nbits;
+    nbits += n;
+    while (nbits >= 32) {
+      out.push_back((uint32_t)cache);
+      cache >>= 32;
+      nbits -= 32;
+    }
+  };
+  int64_t total_syms = 0;
+  for (int b = 0; b < blocks * 3; b++) {
+    // format v3 chunk alignment (pad-to-word on chunk entry)
+    if (b % 64 == 0 && tbits) put(tw, tcache, tbits, 0, 32 - tbits);
+    if (b % 32 == 0 && rbitsn) put(rw, rcache, rbitsn, 0, 32 - rbitsn);
+    int nz = rnd() % 15;
+    uint32_t count = nz;
+    uint32_t ctok = count < 16 ? count : 16 + ((31 - __builtin_clz(count)) - 1 - 3) * 2 + ((count >> ((31 - __builtin_clz(count)) - 1)) & 1);
+    int crb = ctok < 16 ? 0 : (int)((ctok - 16) >> 1) + 3;
+    put(tw, tcache, tbits, rev6(ctok), 6);
+    if (crb) put(rw, rcache, rbitsn, count & ((1u << crb) - 1), crb);
+    total_syms++;
+    // coefficients: emit nz nonzero tokens then stop
+    for (int k = 0; k < nz; k++) {
+      uint32_t tok = 2 + rnd() % 10;
+      put(tw, tcache, tbits, rev6(tok), 6);
+      total_syms++;
+    }
+  }
+  put(tw, tcache, tbits, 0, 31);  // flush
+  put(rw, rcache, rbitsn, 0, 31);
+  tw.push_back(0); rw.push_back(0);
+  tw.push_back(0); rw.push_back(0);
+  HydHF* h2 = hyd_hf_new(9);
+  hyd_hf_force_las(h2, 8);
+  int64_t toff[1] = {0}, roff[1] = {0}, scount[1] = {total_syms};
+  if (hyd_hf_add_lfg_packed(h2, tw.data(), rw.data(), lut.data(), 9,
+                            cm.data(), 0, 1, 1, 32, 32, toff, roff, scount,
+                            2) != 0) {
+    fprintf(stderr, "packed walk failed\n");
+    exit(1);
+  }
+  if (hyd_hf_prepare(h2) != 0) {
+    fprintf(stderr, "packed prepare failed\n");
+    exit(1);
+  }
+  HydWriter* w2 = hyd_writer_new();
+  HydWriter* warr[1] = {w2};
+  if (hyd_hf_encode_all(h2, 0, warr, 2) != 0) {
+    fprintf(stderr, "packed encode failed\n");
+    exit(1);
+  }
+  hyd_writer_free(w2);
+  hyd_hf_free(h2);
+  printf("hf packed ok\n");
+}
+
+// Format-v4 LF residual stream: hybrid-uint-tokenized fields under one
+// fixed 6-bit transport code; hyd_lf_decode must reconstruct the exact
+// pack_signed values and land on the exact bit count.
+static void test_lf_decode() {
+  auto rev6 = [](uint32_t v) {
+    uint32_t r = 0;
+    for (int i = 0; i < 6; i++) r |= ((v >> i) & 1) << (5 - i);
+    return r;
+  };
+  std::vector<uint16_t> lut(4096);
+  for (uint32_t idx = 0; idx < 4096; idx++)
+    lut[idx] = (uint16_t)(rev6(idx & 63) | (6 << 8));
+  const long n = 5000;
+  std::vector<uint32_t> vals(n), lfw;
+  uint64_t cache = 0;
+  int nbits = 0;
+  long total = 0;
+  for (long i = 0; i < n; i++) {
+    uint32_t v = rnd() % ((i % 7 == 0) ? (1u << 20) : 16u);
+    vals[i] = v;
+    uint32_t tok, res;
+    int rb;
+    if (v < 16) {
+      tok = v; res = 0; rb = 0;
+    } else {
+      int fl = 31 - __builtin_clz(v);
+      rb = fl - 1;
+      tok = 16 + (((uint32_t)(rb - 3) << 1) | ((v >> rb) & 1));
+      res = v & ((1u << rb) - 1);
+    }
+    cache |= (uint64_t)rev6(tok) << nbits;
+    nbits += 6;
+    cache |= (uint64_t)res << nbits;
+    nbits += rb;
+    total += 6 + rb;
+    while (nbits >= 32) {
+      lfw.push_back((uint32_t)cache);
+      cache >>= 32;
+      nbits -= 32;
+    }
+  }
+  if (nbits) lfw.push_back((uint32_t)cache);
+  lfw.push_back(0);
+  lfw.push_back(0);
+  std::vector<uint32_t> out(n);
+  long end = hyd_lf_decode(lfw.data(), lut.data(), n, total, out.data());
+  if (end != total) {
+    fprintf(stderr, "lf decode end %ld != %ld\n", end, total);
+    exit(1);
+  }
+  for (long i = 0; i < n; i++)
+    if (out[i] != vals[i]) {
+      fprintf(stderr, "lf decode mismatch at %ld: %u != %u\n", i, out[i],
+              vals[i]);
+      exit(1);
+    }
+  printf("lf decode ok\n");
+
+  // Corrupt streams must return -1 WITHOUT reading past the buffer's
+  // one slack word (ADVICE r3: the old between-fields-only guard let a
+  // mid-field advance dereference past the fetched words; ASAN verifies
+  // the exact-size allocations here).
+  {
+    // every LUT entry: token 62 (rb = 26), code length 6 -> each field
+    // is exactly 32 bits
+    std::vector<uint16_t> lut62(4096, (uint16_t)(62 | (6 << 8)));
+    // exactly 1 payload word + 1 slack word; claim 2 fields in 32 bits:
+    // field 1 consumes all of max_bits, field 2 starts AT max_bits (the
+    // old `>` check admitted it and peek12 read words[2])
+    std::vector<uint32_t> tight{0x5A5A5A5Au, 0u};
+    uint32_t o2[2] = {0, 0};
+    if (hyd_lf_decode(tight.data(), lut62.data(), 2, 32, o2) != -1) {
+      fprintf(stderr, "lf decode: field at max_bits not rejected\n");
+      exit(1);
+    }
+    // mid-field overrun: max_bits 20 but the first field needs 32 bits
+    // (code 6 + residue 26) -- must reject BEFORE read() runs off
+    std::vector<uint32_t> tiny{0x12345678u, 0u};
+    if (hyd_lf_decode(tiny.data(), lut62.data(), 1, 20, o2) != -1) {
+      fprintf(stderr, "lf decode: mid-field overrun not rejected\n");
+      exit(1);
+    }
+  }
+  printf("lf decode corrupt ok\n");
+}
+
+// PNG row defilter (hyd_png_unfilter) against the PNG specification's
+// filter definitions (PNG 2nd ed., section 9.2): with a the byte bpp to
+// the left, b the byte above and c the byte above-left (0 where there is
+// none, all of the prior row where there is no prior row), a filtered
+// byte is Orig(x) - Pred(a, b, c) mod 256 with Pred 0 (None), a (Sub),
+// b (Up), floor((a + b) / 2) (Average) or the Paeth predictor.  Each row
+// is filtered here from the definitions and must come back as the
+// original; random filtered bytes must reconstruct as the definitions
+// say.  Rows are heap blocks of exactly n bytes, so ASAN sees any read
+// or write past a row (n < bpp and n == 0 included).
+static int paeth(int a, int b, int c) {
+  const int p = a + b - c;
+  const int pa = abs(p - a), pb = abs(p - b), pc = abs(p - c);
+  if (pa <= pb && pa <= pc) return a;
+  return pb <= pc ? b : c;
+}
+
+static int png_pred(int filter, const uint8_t* recon, const uint8_t* prev,
+                    long i, int bpp) {
+  const int a = i >= bpp ? recon[i - bpp] : 0;
+  const int b = prev ? prev[i] : 0;
+  const int c = (prev && i >= bpp) ? prev[i - bpp] : 0;
+  switch (filter) {
+    case 1: return a;
+    case 2: return b;
+    case 3: return (a + b) / 2;
+    case 4: return paeth(a, b, c);
+    default: return 0;
+  }
+}
+
+static void png_case(int filter, int bpp, long n, bool with_prev) {
+  uint8_t* orig = new uint8_t[n];
+  uint8_t* prev = with_prev ? new uint8_t[n] : nullptr;
+  uint8_t* row = new uint8_t[n];
+  uint8_t* want = new uint8_t[n];
+  for (long i = 0; i < n; i++) {
+    orig[i] = (uint8_t)rnd();
+    if (prev) prev[i] = (uint8_t)rnd();
+  }
+  // forward filter from the definitions: predictors see original bytes
+  for (long i = 0; i < n; i++)
+    row[i] = (uint8_t)(orig[i] - png_pred(filter, orig, prev, i, bpp));
+  if (hyd_png_unfilter(row, prev, n, bpp, filter) != 0) {
+    fprintf(stderr, "png unfilter %d refused bpp=%d n=%ld\n", filter, bpp,
+            n);
+    exit(1);
+  }
+  if (n && memcmp(row, orig, n) != 0) {
+    fprintf(stderr, "png unfilter %d round trip bpp=%d n=%ld prev=%d\n",
+            filter, bpp, n, (int)with_prev);
+    exit(1);
+  }
+  // random filtered bytes, reconstructed byte by byte as defined
+  for (long i = 0; i < n; i++) row[i] = (uint8_t)rnd();
+  for (long i = 0; i < n; i++)
+    want[i] = (uint8_t)(row[i] + png_pred(filter, want, prev, i, bpp));
+  hyd_png_unfilter(row, prev, n, bpp, filter);
+  if (n && memcmp(row, want, n) != 0) {
+    fprintf(stderr, "png unfilter %d random bpp=%d n=%ld prev=%d\n", filter,
+            bpp, n, (int)with_prev);
+    exit(1);
+  }
+  delete[] orig;
+  delete[] prev;
+  delete[] row;
+  delete[] want;
+}
+
+static void test_png_unfilter() {
+  // 1-4 channels of 8 bits (1, 2, 3, 4) and of 16 bits (2, 4, 6, 8)
+  const int bpps[] = {1, 2, 3, 4, 6, 8};
+  for (int filter = 0; filter <= 4; filter++)
+    for (int bpp : bpps)
+      for (int with_prev = 0; with_prev < 2; with_prev++) {
+        for (long n = 0; n <= bpp; n++) png_case(filter, bpp, n, with_prev);
+        for (int k = 0; k < 8; k++)
+          png_case(filter, bpp, bpp * (1 + (long)(rnd() % 700)), with_prev);
+      }
+  uint8_t row[4] = {1, 2, 3, 4};
+  if (hyd_png_unfilter(row, nullptr, 4, 1, 5) != -1) {
+    fprintf(stderr, "png unfilter: filter 5 not refused\n");
+    exit(1);
+  }
+  printf("png unfilter ok\n");
+}
+int main() {
+  test_prefix_streams();
+  test_hf_padded_and_packed();
+  test_lf_decode();
+  test_png_unfilter();
+  printf("selftest passed\n");
+  return 0;
+}

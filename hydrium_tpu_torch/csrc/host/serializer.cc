@@ -1300,7 +1300,9 @@ int hyd_png_unfilter(uint8_t* cur, const uint8_t* prev, long n, int bpp,
       for (long i = 0; i < n; i++) cur[i] = (uint8_t)(cur[i] + up(i));
       return 0;
     case 3:
-      for (long i = 0; i < bpp; i++) cur[i] = (uint8_t)(cur[i] + up(i) / 2);
+      // a row shorter than one pixel (n < bpp) ends inside this loop
+      for (long i = 0; i < bpp && i < n; i++)
+        cur[i] = (uint8_t)(cur[i] + up(i) / 2);
       for (long i = bpp; i < n; i++)
         cur[i] = (uint8_t)(cur[i] + ((cur[i - bpp] + up(i)) >> 1));
       return 0;

@@ -29,16 +29,20 @@ last LF group arrives, sections spooled), as the jax backend does; the
 numpy plane does so from Encoder.STREAMING_LFG_THRESHOLD LF groups up,
 as the numpy backend does.
 
-Dispatch and drain overlap.  A dispatch uploads its pixels through a
-pinned staging buffer, enqueues the packed pipeline and returns; its
-payload comes back on a thread of its own (the aux prefix first, then
+Dispatch and drain overlap.  A dispatch copies its pixels into a
+pinned staging buffer and returns; one of two prep workers ("hyd-prep",
+process-wide) uploads them and enqueues the packed pipeline, as
+hydrium_tpu's dispatch-preparation pool does; its payload comes back on
+a thread of its own ("hyd-fetch": the aux prefix first, then
 exactly the stream words it names, each into a pinned buffer behind a
 CUDA event).  One-frame mode keeps HYDRIUM_INFLIGHT (default 3) LF
 groups in flight and walks them on one ordered drain worker; tiled mode
 fetches every unit on its own thread and keeps two units across calls.
 With device="cpu" the same threads run with plain copies.  An error on
-a worker thread (a checksum mismatch) reaches the caller from
-send_tile, send_tile_batch or the call that finalizes.
+a worker thread (a checksum mismatch, a failed enqueue) reaches the
+caller from send_tile, send_tile_batch or the call that finalizes.
+Stage "dispatch" times the caller's share of a dispatch, stage
+"prepare" the prep workers' (summed over threads).
 
 The device plane requires the native serialization plane (the packed
 path is where the device kernels are).  Its transport code is one per
@@ -118,6 +122,12 @@ _WIDE_HINT: dict = {}
 _DISPATCH_LOCK = threading.Lock()
 _BOOTSTRAP_LOCK = threading.Lock()
 _FETCH_STREAMS: dict = {}
+# dispatch preparation (upload + enqueue, _TorchDispatch._prepare), off
+# the caller's thread.  Its own executor, apart from the drain worker,
+# the render pool and the fetch threads, which all wait on dispatches:
+# nothing that runs here waits on anything queued behind it.
+_PREP_POOL: Optional[ThreadPoolExecutor] = None
+_PREP_POOL_LOCK = threading.Lock()
 
 
 def _shared_codec() -> TokenCodec:
@@ -173,6 +183,17 @@ def reset_warm_state(cache_path=None) -> None:
         _WARM_CACHE = str(cache_path)
     _SHARED_CODEC = None
     _WIDE_HINT.clear()
+
+
+def _prep_pool() -> ThreadPoolExecutor:
+    """The process-wide pool of two "hyd-prep" workers that upload and
+    enqueue every dispatch (made at first use)."""
+    global _PREP_POOL
+    with _PREP_POOL_LOCK:
+        if _PREP_POOL is None:
+            _PREP_POOL = ThreadPoolExecutor(max_workers=2,
+                                            thread_name_prefix="hyd-prep")
+        return _PREP_POOL
 
 
 def _spawn(fn, *args) -> Future:
@@ -236,12 +257,16 @@ class _HostCopy:
 
 class _TorchDispatch:
     """One LF group (or tile, or stack of tiles) on the device.  Making
-    one copies the caller's pixels (synchronously: the caller may reuse
-    its buffer at once), uploads them and enqueues the packed pipeline;
-    start_fetch() brings the payload back on a thread of its own; join()
-    waits for it; drain() walks it into the HF stream.  fused selects
-    the fused front; lf_seg_vb > 0 restarts LF prediction every
-    lf_seg_vb varblock rows (stacked tiles are independent frames)."""
+    one copies the caller's pixels into a pinned staging buffer
+    (synchronously: the caller may reuse its buffer at once) and hands
+    the upload and the enqueue of the packed pipeline to the prep pool
+    (_prepare); start_fetch() brings the payload back on a thread of its
+    own; join() waits for it; drain() walks it into the HF stream.
+    Whatever touches what _prepare makes joins it first
+    (join_prepare), and an error raised there is raised by that join.
+    fused selects the fused front; lf_seg_vb > 0 restarts LF prediction
+    every lf_seg_vb varblock rows (stacked tiles are independent
+    frames)."""
 
     def __init__(self, pixels, sample_fmt: str, linear_light: bool, lfg,
                  preset: int, hf, codec: TokenCodec,
@@ -255,13 +280,12 @@ class _TorchDispatch:
         self.buf_w = min(lfg.tile_count_x << 8, ((w + 255) >> 8) << 8)
         ubuf_h = min(self.buf_h, ((h + 31) >> 5) << 5)
         ubuf_w = min(self.buf_w, ((w + 31) >> 5) << 5)
-        on_card = device.type == "cuda"
         dtype = torch.from_numpy(np.empty(0, np.asarray(pixels).dtype)).dtype
-        stage = torch.zeros((ubuf_h, ubuf_w, 3), dtype=dtype,
-                            pin_memory=on_card)
-        stage.numpy()[:h, :w] = pixels[:h, :w]
-        self.px = stage.to(device, non_blocking=True) if on_card else stage
-        stats.count("h2d_raw_bytes", stage.numel() * stage.element_size())
+        # referenced until the fetch is done: the upload from it is
+        # asynchronous
+        self._stage = torch.zeros((ubuf_h, ubuf_w, 3), dtype=dtype,
+                                  pin_memory=device.type == "cuda")
+        self._stage.numpy()[:h, :w] = pixels[:h, :w]
         self.lfg, self.preset, self.hf = lfg, preset, hf
         self.codec, self.front, self.device = codec, front, device
         self.stats = stats
@@ -269,14 +293,38 @@ class _TorchDispatch:
         self.fused, self.lf_seg_vb = fused, lf_seg_vb
         self.num_clusters = int(hf.cluster_map.max()) + 1
         self.tok_classes = self.num_clusters // hf.num_presets
-        G = (self.buf_h >> 8) * (self.buf_w >> 8)
-        self.presets = torch.full((G,), preset, dtype=torch.int32,
-                                  device=device)
         self._wide_key = (self.buf_h, self.buf_w, sample_fmt)
         self.wide = _WIDE_HINT.get(self._wide_key, False)
+        self.px = self.presets = None
         self._future: Optional[Future] = None
         self._result = None
-        self._dispatch()
+        self._prep = _prep_pool().submit(self._prepare)
+
+    def _prepare(self) -> None:
+        """On the prep pool: upload the staged pixels, make the presets
+        tensor and enqueue the packed pipeline, all on the device's
+        current stream of this thread (the one the fetch's events
+        order against).  Never submits to the pool: a re-dispatch
+        (bootstrap, wide retry) runs on the fetch thread."""
+        tag = f"{self.lfg.y},{self.lfg.x}"
+        stage = self._stage
+        with self.stats.stage("prepare"):
+            with self.stats.event(f"h2d[{tag}]"), _DISPATCH_LOCK, \
+                    _current(self.device):
+                self.px = (stage.to(self.device, non_blocking=True)
+                           if self.device.type == "cuda" else stage)
+                G = (self.buf_h >> 8) * (self.buf_w >> 8)
+                self.presets = torch.full((G,), self.preset,
+                                          dtype=torch.int32,
+                                          device=self.device)
+            self.stats.count("h2d_raw_bytes",
+                             stage.numel() * stage.element_size())
+            with self.stats.event(f"dispatch[{tag}]"):
+                self._dispatch()
+
+    def join_prepare(self) -> None:
+        """Wait for _prepare; raises what it raised."""
+        self._prep.result()
 
     def _dispatch(self) -> None:
         """Enqueue the packed pipeline with a snapshot of the codec, and
@@ -306,7 +354,8 @@ class _TorchDispatch:
 
     def join(self):
         """(aux, words or None) of the fetch, which runs here when no
-        thread was started for it; raises what the fetch raised."""
+        thread was started for it; raises what the prepare or the fetch
+        raised."""
         if self._result is None:
             self._result = (self._fetch() if self._future is None
                             else self._future.result())
@@ -325,6 +374,7 @@ class _TorchDispatch:
         bootstrap and the wide retry where they apply) and, for a valid
         payload, exactly the stream words it needs; the aux histogram
         goes into the codec.  Returns (aux, words or None)."""
+        self.join_prepare()
         folded = False
         if self.codec.cold:
             # cold-start bootstrap, once per cold codec: the generic
@@ -366,7 +416,7 @@ class _TorchDispatch:
                 raise RuntimeError("packed payload stream checksum mismatch")
         if not folded:
             self.codec.update(aux[8:648])
-        self._combined = self._aux = None
+        self._combined = self._aux = self._stage = None
         return aux, words
 
     def drain(self):
@@ -527,7 +577,11 @@ class Encoder:
     (default 3, read when the Encoder is made) LF groups in flight
     behind the one being sent; 0 drains each before send_tile returns,
     and in tiled mode drains each unit as soon as it is dispatched.  The
-    transport codec is the process's shared one (_shared_codec)."""
+    transport codec is the process's shared one (_shared_codec).
+
+    The positional parameters are hydrium_tpu.Encoder's, in its order
+    (metadata, backend, streaming, spool_dir, profile); device and
+    fused_front, which it lacks, are keyword-only."""
 
     # numpy-plane one-frame encodes with at least this many LF groups
     # switch to the memory-bounded streaming HF path (per-preset eager
@@ -535,11 +589,11 @@ class Encoder:
     STREAMING_LFG_THRESHOLD = int(
         os.environ.get("HYDRIUM_STREAMING_THRESHOLD", "17"))
 
-    def __init__(self, metadata: ImageMetadata, device="cuda",
+    def __init__(self, metadata: ImageMetadata,
+                 backend: Optional[str] = None,
                  streaming: Optional[bool] = None,
-                 spool_dir: Optional[str] = None,
-                 fused_front: Optional[bool] = None,
-                 backend: Optional[str] = None, profile=None) -> None:
+                 spool_dir: Optional[str] = None, profile=None, *,
+                 device="cuda", fused_front: Optional[bool] = None) -> None:
         metadata.validate()
         if profile is not None:
             if isinstance(profile, str):
@@ -727,8 +781,8 @@ class Encoder:
 
     def _dispatch(self, pixels, fmt: str, lfg, preset: int, hf,
                   lf_seg_vb: int = 0) -> _TorchDispatch:
-        """Copy `pixels` to the device as one dispatch unit and enqueue
-        its packed pipeline."""
+        """Stage `pixels` as one dispatch unit; the prep pool uploads
+        them and enqueues its packed pipeline."""
         return _TorchDispatch(
             pixels, fmt, self.metadata.linear_light, lfg, preset, hf,
             self._codec, self._front, self.device, self.stats,
@@ -1343,10 +1397,9 @@ class BufferedEncoder:
 def encode_image(image: np.ndarray, tile_size_shift: int = -1,
                  linear_light: bool = False,
                  sample_fmt: Optional[SampleFormat] = None,
-                 device="cuda",
+                 backend: Optional[str] = None, *, device="cuda",
                  stats: Optional[EncodeStats] = None,
-                 fused_front: Optional[bool] = None,
-                 backend: Optional[str] = None, profile=None) -> bytes:
+                 fused_front: Optional[bool] = None, profile=None) -> bytes:
     """One-shot encode of an [H, W, 3] array to .jxl bytes on `device`:
     one frame (tile_size_shift -1) or tiles of 256 << tile_size_shift,
     sent through send_tile_batch 16 at a time.  backend / profile choose
@@ -1354,7 +1407,9 @@ def encode_image(image: np.ndarray, tile_size_shift: int = -1,
     plane, which ignores `device`).  `stats`, when given, receives the
     encode's stage times and counters (lfg_packed, lfg_fallback,
     wide_retries, codec_bootstraps, and the bytes that crossed the link:
-    h2d_raw_bytes uploaded, fetched_words copied back)."""
+    h2d_raw_bytes uploaded, fetched_words copied back).  The positional
+    parameters are hydrium_tpu.encode_image's, in its order; the rest
+    are keyword-only."""
     if sample_fmt is None:
         sample_fmt = {np.dtype(np.uint8): SampleFormat.UINT8,
                       np.dtype(np.uint16): SampleFormat.UINT16}.get(

@@ -252,3 +252,38 @@ def test_tiled_batch_pending_run_format_change():
         enc.send_tile_batch(entries, sample_fmt=fmt)
     assert enc.take_output() == ref.take_output()
     assert enc.stats.counters["lfg_packed"] == 2    # one chunk per format
+
+
+@pytest.mark.parametrize("shift", [-1, 0])
+def test_positional_backend_gives_the_jax_packages_bytes(shift):
+    """encode_image's positional order is the JAX package's: image,
+    tile_size_shift, linear_light, sample_fmt, backend."""
+    import hydrium_tpu
+
+    img = np.random.default_rng(14).integers(0, 256, (200, 300, 3),
+                                             dtype=np.uint8)
+    want = hydrium_tpu.encode_image(img, shift, False, None, "numpy")
+    assert H.encode_image(img, shift, False, None, "numpy") == want
+
+
+def test_positional_encoder_backend_and_keyword_only_device():
+    """Encoder(meta, "numpy") is the numpy plane in both packages; a
+    device in backend's place is an unknown backend, and device cannot
+    be passed by position."""
+    import hydrium_tpu
+
+    img = np.random.default_rng(15).integers(0, 256, (200, 300, 3),
+                                             dtype=np.uint8)
+    outs = []
+    for pkg in (hydrium_tpu, H):
+        enc = pkg.Encoder(pkg.ImageMetadata(width=300, height=200), "numpy")
+        enc.send_tile(img, 0, 0)
+        outs.append(enc.take_output())
+    assert outs[0] == outs[1] and outs[0][:2] == b"\xff\x0a"
+    meta = ImageMetadata(width=300, height=200)
+    with pytest.raises(ValueError, match="unknown backend 'cpu'"):
+        Encoder(meta, "cpu")
+    with pytest.raises(TypeError):
+        Encoder(meta, "torch", None, None, None, "cpu")
+    with pytest.raises(TypeError):
+        H.encode_image(img, -1, False, None, "torch", "cpu")

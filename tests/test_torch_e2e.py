@@ -14,6 +14,7 @@ import fcntl
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -119,6 +120,24 @@ def warm_state(tmp_path, monkeypatch):
     monkeypatch.setattr(TE, "_WARM_CACHE", str(tmp_path / "warm" / "warm.npz"))
     monkeypatch.setattr(TE, "_SHARED_CODEC", codec)
     monkeypatch.setattr(TE, "_WIDE_HINT", {})
+    yield
+    # an Encoder that a test abandons (it raised) may still have
+    # dispatches on the prep pool: let them end while this test's
+    # patches hold, so that none reaches the next test's
+    prep_pool_idle()
+
+
+def prep_pool_idle(timeout: float = 60) -> None:
+    """Return once every task submitted to the prep pool so far has
+    ended: one barrier task per worker, all running at once, means
+    every worker is past what was queued before them."""
+    pool = TE._PREP_POOL
+    if pool is None:
+        return
+    n = pool._max_workers
+    barrier = threading.Barrier(n)
+    for fut in [pool.submit(barrier.wait, timeout) for _ in range(n)]:
+        fut.result(timeout)
 
 
 IMAGES = [(256, 256, "noise"), (100, 70, "smooth"), (300, 520, "noise"),

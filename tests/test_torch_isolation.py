@@ -27,6 +27,7 @@ def _port_files():
     return files + [REPO / name for name in ("chip_smoke.py",
                                              "profile_front.py",
                                              "profile_pack.py",
+                                             "profile_prepare.py",
                                              "profile_tiled.py",
                                              "profile_transport.py")]
 
@@ -50,6 +51,25 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     bad = [f"{p.relative_to(REPO)}:{line} imports {root}"
            for p in files for line, root in _imported_roots(p)
            if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_native_sources_include_nothing_outside_the_port():
+    """The port's C++ and CUDA sources (its native plane and its
+    sanitizer self-test among them) include system headers, or files of
+    their own directory tree, never the JAX package's cpp/."""
+    csrc = REPO / "hydrium_tpu_torch" / "csrc"
+    sources = sorted(p for p in csrc.rglob("*")
+                     if p.suffix in (".cc", ".cu", ".h", ".cuh"))
+    names = {p.relative_to(csrc).as_posix() for p in sources}
+    assert {"host/serializer.cc", "host/selftest.cc"} <= names
+    bad = []
+    for p in sources:
+        for line in p.read_text().splitlines():
+            if line.startswith("#include") and '"' in line:
+                target = (p.parent / line.split('"')[1]).resolve()
+                if csrc.resolve() not in target.parents:
+                    bad.append(f"{p.relative_to(REPO)}: {line}")
     assert not bad, bad
 
 
