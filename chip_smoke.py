@@ -32,7 +32,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (median of 20), the plain twin's, and the bound (bytes over 3.35
    TB/s or float32 operations, counted once from the kernel's SASS,
    over 67 TFLOP/s, whichever is larger; a chunk-pack pair's bytes are
-   both streams' summed);
+   both streams' summed); then the CUDA graphs (ops/graphs.py) at every
+   dispatch shape of phases 4 and 5 (the four LF groups of the one-frame
+   encode with each front, the tiled stacked chunk and edge tile with
+   the fused front), with narrow and with wide residues: the packed
+   pipeline eagerly, once under torch.cuda.set_sync_debug_mode("error"),
+   and replayed from its graph, payload words equal, also with other
+   pixels and code tables; each replay adds the captured launches to
+   the counters.  Per key the eager and the graph call, the capture's
+   seconds and reserved MiB.  After phase 5, every graph the cache keeps
+   has a key checked here;
 4. one-frame mode: hydrium_tpu_torch.encode_image on a 3840x2160 u8
    image (noise + sinusoid, from a seed), one frame of four LF groups.
    Checks: all four LF groups packed, no fallback, each kernel launched
@@ -97,13 +106,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    is unchanged.  The phase's host walls are printed with the card's
    name and power limit;
 10. the bench (hydrium_tpu_torch/bench.py), in this process: its device
-   plane on one 2048^2 LF group (20 calls a variant) and its end-to-end
-   rows at full 4K (3 encodes a row; smooth, noisy, tiled, tiled with
-   the fused front, photo).  Checks: every figure above 0; the fused
-   variant launches transport_prep, chunk_pack and frontend_tokens once
-   per call; the noisy one-frame row's file has phase 4's sha256 and the
-   tiled-fused row's phase 5's.  Its JSON line is printed with the
-   card's name and power limit;
+   plane on one 2048^2 LF group (20 calls a variant: eager torch and
+   fused, unpacked, and torch and fused replayed from their graphs) and
+   its end-to-end rows at full 4K (3 encodes a row; smooth, noisy,
+   tiled, tiled with the fused front, photo).  Checks: every figure
+   above 0; the fused variant and its graph launch transport_prep,
+   chunk_pack and frontend_tokens once per call; the noisy one-frame
+   row's file has phase 4's sha256 and the tiled-fused row's phase 5's.
+   Its JSON line, and the device plane's eager and graph calls, are
+   printed with the card's name and power limit;
 11. the scale configurations (hydrium_tpu_torch/scale.py, BASELINE
    configs 4 and 5): config4, the 7680x4320 u16 image through
    Encoder.send_tile per LF group, cold then warm, with the default and
@@ -111,7 +122,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    kernel launched once a dispatch in the warm pass, the codestream
    signature, both passes the same bytes); the image's bottom 224x7680
    strip on the card with the front's integers taken from the port's
-   CPU front, equal byte for byte to the CPU's file, and the card's
+   CPU front (and so the eager pipeline on the card: a host front
+   cannot be captured), equal byte for byte to the CPU's file, and the
+   card's
    front against the CPU front on that strip within the flip bound;
    config5_cli and config5_multi at 16384 wide x 16385 tall (one row
    over 2^28 pixels, so the level-10 container comes on by itself):
@@ -995,6 +1008,137 @@ def check_conformance(scratch: str, smi: str) -> dict:
             "bytes": {k: len(v) for k, v in files.items()}}
 
 
+def graph_cases(img: np.ndarray):
+    """(name, upload [ubuf_h, ubuf_w, 3], preset, LF group geometry,
+    lf_seg_vb, fused) of every dispatch shape of phases 4 and 5: the four
+    LF groups of the one-frame 4K encode with each front, and the tiled
+    encode's stacked chunk (16 full tiles) and bottom edge tile with the
+    fused front."""
+    from hydrium_tpu_torch.encoder import buffer_shapes
+    from hydrium_tpu_torch.jxl.frame import LFGroupGeometry
+
+    h, w = img.shape[:2]
+    cases = []
+
+    def add(name, px, preset, lfg, seg, fused):
+        _bh, _bw, uh, uw = buffer_shapes(lfg)
+        up = np.zeros((uh, uw, 3), np.uint8)
+        up[:lfg.height, :lfg.width] = px[:lfg.height, :lfg.width]
+        cases.append((name, up, preset, lfg, seg, fused))
+
+    for fused in (False, True):
+        for y in range(-(-h // 2048)):
+            for x in range(-(-w // 2048)):
+                lfg = LFGroupGeometry(x=x, y=y,
+                                      width=min(2048, w - x * 2048),
+                                      height=min(2048, h - y * 2048),
+                                      tile_count_x=8, tile_count_y=8)
+                add(f"lfg{y}{x}{'_fused' if fused else ''}",
+                    img[y * 2048:, x * 2048:], 2 * y + x, lfg, 0, fused)
+    k_stack, tx = 4096 // TILE, w // TILE
+    stack = np.concatenate([img[j // tx * TILE:(j // tx + 1) * TILE,
+                                j % tx * TILE:(j % tx + 1) * TILE]
+                            for j in range(k_stack)])   # in send order
+    add("tiled_chunk_fused", stack, 0,
+        LFGroupGeometry(x=0, y=0, width=TILE, height=k_stack * TILE,
+                        tile_count_x=1, tile_count_y=k_stack),
+        TILE >> 3, True)
+    ty = h // TILE
+    add("tiled_edge_fused", img[ty * TILE:, :TILE], 0,
+        LFGroupGeometry(x=0, y=ty, width=TILE, height=h - ty * TILE,
+                        tile_count_x=1, tile_count_y=1), 0, True)
+    return cases
+
+
+def check_graphs(img: np.ndarray, dev, smi: str) -> dict:
+    """Phase 3, graphs: for each dispatch shape of phases 4 and 5
+    (graph_cases), narrow and wide residues, the packed pipeline run
+    eagerly, once more under torch.cuda.set_sync_debug_mode("error")
+    (no operation of the body may wait on the device), then through
+    ops/graphs.py (its first call captures): the graph's payload words
+    equal the eager ones; again with other pixels and other code tables,
+    replayed with no new capture, and with the launch counters risen by
+    what the capture recorded.  Per key: the eager and the graph call
+    (median of 10 between CUDA events, host work included), the
+    capture's seconds and reserved MiB.  Returns {name: record}."""
+    import torch
+
+    from hydrium_tpu_torch.encoder import buffer_shapes
+    from hydrium_tpu_torch.jxl.tokcode import TokenCodec
+    from hydrium_tpu_torch.ops import graphs
+    from hydrium_tpu_torch.ops import packed as TP
+    from hydrium_tpu_torch.ops.front import FrontEnd
+
+    front = FrontEnd.from_tables().to(dev)
+    codec = TokenCodec()
+    tabs = [codec.tables()[:2]]
+    codec.update(np.random.default_rng(11).integers(0, 400, (10, 64)))
+    tabs.append(codec.tables()[:2])
+    tabs = [[torch.as_tensor(t.astype(np.int32), device=dev) for t in tab]
+            for tab in tabs]
+    out = {}
+    for name, up, preset, lfg, seg, fused in graph_cases(img):
+        buf_h, buf_w, _uh, _uw = buffer_shapes(lfg)
+        G = (buf_h >> 8) * (buf_w >> 8)
+        for wide in (False, True):
+            kw = dict(buf_h=buf_h, buf_w=buf_w, linear_light=False,
+                      sample_kind="uint8", lf_seg_vb=seg, tok_classes=9,
+                      wide_residues=wide, fused=fused)
+            inputs = [(torch.as_tensor(px, device=dev),
+                       torch.full((G,), p, dtype=torch.int32, device=dev),
+                       *tab) for px, p, tab in ((up, preset, tabs[0]),
+                                                (255 - up, preset ^ 1,
+                                                 tabs[1]))]
+
+            def eager(i):
+                px, pre, tl, tc = inputs[i]
+                return TP.encode_lfg_packed(front, px, lfg.height, lfg.width,
+                                            pre, tl, tc, **kw)
+
+            def graphed(i):
+                px, pre, tl, tc = inputs[i]
+                return graphs.encode_lfg_packed(front, px, lfg.height,
+                                                lfg.width, pre, tl, tc, **kw)
+
+            eager(0)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                want = [eager(0), eager(1)]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            before = kernel_counts()
+            got = graphed(0)
+            mid = kernel_counts()
+            got2 = graphed(1)
+            after = kernel_counts()
+            per = {k: mid[k] - before[k] for k in mid}
+            assert per == {k: after[k] - mid[k] for k in mid}, (per, after)
+            assert per["transport_prep"] == per["chunk_pack"] == 1, per
+            assert per["frontend_tokens"] == int(fused), per
+            for g, e in zip((got, got2), want):
+                assert g.shape == e.shape and torch.equal(g, e), (
+                    f"{name}: graph payload differs from eager in "
+                    f"{int((g != e).sum())} words")
+            stats = graphs.graph_stats()[str(inputs[0][0].device)]
+            key = graphs.key_text(graphs.packed_key(
+                inputs[0][0], lfg.height, lfg.width, **kw))
+            rec, = [g for g in stats["graphs"] if g["key"] == key]
+            tag = name + ("_wide" if wide else "")
+            out[tag] = {"key": key, "ok_word": int(want[0][0]),
+                        "words": want[0].numel(),
+                        "eager_ms": _time_ms(lambda: eager(0), 10),
+                        "graph_ms": _time_ms(lambda: graphed(0), 10),
+                        "capture_s": rec["capture_s"],
+                        "reserved_mib": rec["reserved_mib"]}
+            print(f"graph {tag} ({key}): payload equal to eager, twice; "
+                  f"eager {out[tag]['eager_ms']:.4f} ms, graph "
+                  f"{out[tag]['graph_ms']:.4f} ms a call, capture "
+                  f"{rec['capture_s']:.3f} s, {rec['reserved_mib']:.1f} MiB "
+                  f"reserved, on {smi}", flush=True)
+    return out
+
+
 def kernel_counts(zero: bool = False) -> dict:
     """The kernel wrappers' launch counts (set to 0 first when `zero`)."""
     from hydrium_tpu_torch import bench
@@ -1175,12 +1319,22 @@ def check_bench(digests: dict, smi: str) -> dict:
 
     t0 = time.perf_counter()
     dp = bench.device_plane(20, "cuda")
-    for v in ("torch", "fused", "unpacked"):
+    for v in ("torch", "fused", "unpacked", "torch_graph", "fused_graph"):
         for k in ("ms_per_lfg", "mpix_s", "per_call_ms", "queued_ms_per_lfg"):
             assert dp[f"{v}_{k}"] > 0, (v, k, dp)
-    assert dp["fused_launches_per_call"] == {
-        "transport_prep": 1, "chunk_pack": 1, "frontend_tokens": 1,
-        "frontend_groups": 0}, dp["fused_launches_per_call"]
+    # a replay counts the launches its graph captured
+    for v in ("fused", "fused_graph"):
+        assert dp[f"{v}_launches_per_call"] == {
+            "transport_prep": 1, "chunk_pack": 1, "frontend_tokens": 1,
+            "frontend_groups": 0}, (v, dp[f"{v}_launches_per_call"])
+    assert dp["torch_graph_clone_ms"] > 0 and dp["fused_graph_clone_ms"] > 0
+    print("device plane, ms a call back to back / single + sync, eager "
+          "against graph: " + "; ".join(
+              f"{v} {dp[f'{v}_ms_per_lfg']:.4f} / {dp[f'{v}_per_call_ms']:.4f}"
+              for v in ("torch", "torch_graph", "fused", "fused_graph",
+                        "unpacked"))
+          + f"; clone {dp['fused_graph_clone_ms']:.4f} ms, on {smi}",
+          flush=True)
     assert dp["fused_device_busy_ms_per_call"] > 0, dp
     assert len(dp["fused_top_ops"]) == 5, dp["fused_top_ops"]
     kernel_counts(zero=True)
@@ -1209,7 +1363,8 @@ def check_bench(digests: dict, smi: str) -> dict:
 def strip_with_cpu_front(strip: np.ndarray, dev) -> dict:
     """Phase 11: the strip encoded on the card with the front's integers
     taken from the port's CPU front (ops/front.py::front_tokens patched,
-    as tests/test_torch_e2e.py patches it to JAX's) must give the CPU
+    as tests/test_torch_e2e.py patches it to JAX's, and the dispatch's
+    graph runner patched to the eager pipeline) must give the CPU
     encode's bytes; and the card's front against the CPU front on each
     of the strip's LF groups, within the flip bound."""
     import torch
@@ -1217,17 +1372,27 @@ def strip_with_cpu_front(strip: np.ndarray, dev) -> dict:
     import hydrium_tpu_torch as H
     from hydrium_tpu_torch import EncodeStats
     from hydrium_tpu_torch.ops import front as TF
+    from hydrium_tpu_torch.ops import graphs
+    from hydrium_tpu_torch.ops import packed as TP
 
-    real = TF.front_tokens
+    real, real_graphs = TF.front_tokens, graphs.encode_lfg_packed
 
     def cpu_front(front, pixels, *a, **k):
         out = real(TF.FrontEnd.from_tables(), pixels.cpu(), *a, **k)
         return {key: v.to(pixels.device) for key, v in out.items()}
 
+    def eager(front, pixels, height, width, presets, tok_len, tok_code,
+              **kw):
+        # a front on the host cannot be captured: the eager pipeline,
+        # which phase 3 holds the graphs to, runs on the card
+        return TP.encode_lfg_packed(front, pixels, height, width, presets,
+                                    tok_len.to(pixels.device),
+                                    tok_code.to(pixels.device), **kw)
+
     t0 = time.perf_counter()
     want = H.encode_image(strip, device="cpu")
     cpu_wall = time.perf_counter() - t0
-    TF.front_tokens = cpu_front
+    TF.front_tokens, graphs.encode_lfg_packed = cpu_front, eager
     try:
         kernel_counts(zero=True)
         stats = EncodeStats()
@@ -1237,7 +1402,7 @@ def strip_with_cpu_front(strip: np.ndarray, dev) -> dict:
         wall = time.perf_counter() - t0
         launches = kernel_counts()
     finally:
-        TF.front_tokens = real
+        TF.front_tokens, graphs.encode_lfg_packed = real, real_graphs
     flips = total = 0
     for x in range(0, strip.shape[1], 2048):
         f, n = front_flips(strip[:, x:x + 2048], dev, "uint16")
@@ -1340,7 +1505,7 @@ def main() -> int:
     import hydrium_tpu_torch
     from hydrium_tpu_torch import EncodeStats
     from hydrium_tpu_torch import encoder as torch_encoder
-    from hydrium_tpu_torch.ops import _kernels
+    from hydrium_tpu_torch.ops import _kernels, graphs
     from hydrium_tpu_torch.scale import config4_image, write_png
 
     smi = subprocess.run(
@@ -1368,6 +1533,7 @@ def main() -> int:
     img16 = config4_image()
     results = check_kernels(dev)
     results.extend(check_frontend(img, img16, dev))
+    graph_runs = check_graphs(img, dev, smi)
 
     # phase 4: one-frame mode
     kernel_counts(zero=True)
@@ -1467,6 +1633,13 @@ def main() -> int:
     tiled2 = encode_tiled(img, True, tw_stats)
     t_tiled_warm = time.perf_counter() - t0
     assert tiled2 == tiled, "second tiled encode is not byte-identical"
+    # every graph that phases 4 and 5 left (the cache's, least recently
+    # used first) has a key that phase 3 held against the eager pipeline
+    live = graphs.graph_stats()
+    print(f"graphs after phases 4 and 5: {json.dumps(live)}", flush=True)
+    unchecked = ({g["key"] for st in live.values() for g in st["graphs"]}
+                 - {r["key"] for r in graph_runs.values()})
+    assert not unchecked, f"keys not held against eager: {unchecked}"
     tiled_stages = {k: round(v, 4) for k, v in tw_stats.stage_seconds.items()}
     digests = {name: hashlib.sha256(b).hexdigest() for name, b in (
         ("one_frame", data), ("one_frame_fused", fused_data),
@@ -1596,6 +1769,7 @@ def main() -> int:
         "mpix_per_s": mpix / t_tiled_warm, "stages_s": tiled_stages,
         "unfused_warm_s": t_tiled_unfused, "chunks": n_chunks,
         "edge_tiles": n_edge, "counters": dict(tc)}, "cli": cli_runs,
+        "graphs": {"checked": graph_runs, "stats": graphs.graph_stats()},
         "overlap": overlap, "parallel": parallel,
         "conformance": conformance, "scale": {
             k: {f: v for f, v in r.items() if f != "launches"}

@@ -37,14 +37,19 @@ goes to stderr, and its timeline too when HYDRIUM_BENCH_TIMELINE=1.
 of the noisy image (2048^2, or --crop) already on the device, in three
 variants: `torch` (ops/packed.py::encode_lfg_packed, default front),
 `fused` (the same with the fused front: all three kernels) and
-`unpacked` (ops/front.py::encode_lfg).  Per variant: `_ms_per_lfg` and
-`_mpix_s` from `iters` back-to-back calls between CUDA events (the host
-clock on the CPU); `_per_call_ms`, the median of single calls each
-ending in a synchronize; `_queued_ms_per_lfg`, calls enqueued and one
-word of the last result read back.  For `fused` also the kernels'
-launches per call (the wrappers' counters) and the five device
+`unpacked` (ops/front.py::encode_lfg); on a card also `torch_graph` and
+`fused_graph`, the first two replayed from their CUDA graphs
+(ops/graphs.py, as an Encoder dispatches; the first call captures).
+Per variant: `_ms_per_lfg` and `_mpix_s` from `iters` back-to-back
+calls between CUDA events (the host clock on the CPU); `_per_call_ms`,
+the median of single calls each ending in a synchronize;
+`_queued_ms_per_lfg`, calls enqueued and one word of the last result
+read back.  For `fused` and `fused_graph` also the kernels' launches
+per call (the wrappers' counters); for `fused` the five device
 operations with the most self time per call, from one torch.profiler
-pass.
+pass; for the graph variants `_clone_ms`, the device time of the clone
+of one payload that each replay makes (back to back between CUDA
+events), and `graphs`, graph_stats() after the timing.
 
 --device defaults to cuda and raises without a card; the CPU runs only
 when asked, and its times are the CPU's.  --crop cuts every fixture to
@@ -73,7 +78,7 @@ from .config import ImageMetadata, SampleFormat
 from .device import resolve_device
 from .encoder import Encoder
 from .jxl.tokcode import TokenCodec
-from .ops import tables
+from .ops import graphs, tables
 from .ops.bitpack import pack_chunks
 from .ops.front import FrontEnd, encode_lfg
 from .ops.frontend import frontend_groups, frontend_tokens
@@ -221,10 +226,11 @@ def _busy_us(ka) -> float:
 # -- device plane -----------------------------------------------------
 
 def plane_variants(device="cuda", crop=None) -> Dict[str, Callable]:
-    """The device plane's three calls on one LF group of the noisy image
+    """The device plane's calls on one LF group of the noisy image
     (2048^2, or its top-left crop), inputs already on `device`:
-    {"torch", "fused", "unpacked"} -> a function that runs one call and
-    returns its result (the combined payload; encode_lfg's dict)."""
+    {"torch", "fused", "unpacked"}, and on a card "torch_graph" and
+    "fused_graph" -> a function that runs one call and returns its
+    result (the combined payload; encode_lfg's dict)."""
     dev = resolve_device(device)
     h, w = crop or (2048, 2048)
     if h > 2048 or w > 2048:
@@ -246,14 +252,18 @@ def plane_variants(device="cuda", crop=None) -> Dict[str, Callable]:
     kw = dict(buf_h=buf_h, buf_w=buf_w, linear_light=False,
               sample_kind="uint8")
 
-    def packed(fused):
-        return lambda: encode_lfg_packed(front, px, h, w, presets, lens_d,
-                                         codes_d, tok_classes=num_clusters,
-                                         fused=fused, **kw)
+    def packed(fused, run=encode_lfg_packed):
+        return lambda: run(front, px, h, w, presets, lens_d, codes_d,
+                           tok_classes=num_clusters, fused=fused, **kw)
 
-    return {"torch": packed(False), "fused": packed(True),
-            "unpacked": lambda: encode_lfg(front, px, h, w, presets,
-                                           num_clusters=num_clusters, **kw)}
+    variants = {"torch": packed(False), "fused": packed(True),
+                "unpacked": lambda: encode_lfg(front, px, h, w, presets,
+                                               num_clusters=num_clusters,
+                                               **kw)}
+    if dev.type == "cuda":
+        variants["torch_graph"] = packed(False, graphs.encode_lfg_packed)
+        variants["fused_graph"] = packed(True, graphs.encode_lfg_packed)
+    return variants
 
 
 def _first_word(result) -> torch.Tensor:
@@ -307,19 +317,21 @@ def device_plane(iters: int = 50, device="cuda", crop=None) -> dict:
            "unit": "Mpixels/s", "device": str(dev), "card": card_line(dev),
            "iters": iters}
     for name, fn in variants.items():
-        if name == "fused":
-            kernel_counts(zero=True)
+        kernel_counts(zero=True)
         t = _time_variant(fn, iters, dev)
         out[f"{name}_ms_per_lfg"] = t["ms_per_lfg"]
         out[f"{name}_mpix_s"] = h * w / t["ms_per_lfg"] / 1e3
         out[f"{name}_per_call_ms"] = t["per_call_ms"]
         out[f"{name}_queued_ms_per_lfg"] = t["queued_ms_per_lfg"]
+        if name.startswith("fused"):
+            # the timing made 1 + 2 * iters + max(iters // 5, 2) calls
+            calls = 1 + 2 * iters + max(iters // 5, 2)
+            out[f"{name}_launches_per_call"] = {
+                k: n / calls for k, n in kernel_counts().items()}
+        if name.endswith("_graph"):
+            out[f"{name}_clone_ms"] = _clone_ms(fn(), iters)
         if name != "fused":
             continue
-        # the timing made 1 + 2 * iters + max(iters // 5, 2) calls
-        calls = 1 + 2 * iters + max(iters // 5, 2)
-        out["fused_launches_per_call"] = {
-            k: n / calls for k, n in kernel_counts().items()}
         reps = 5
 
         def run():
@@ -338,7 +350,23 @@ def device_plane(iters: int = 50, device="cuda", crop=None) -> dict:
         out["fused_top_ops"] = [{"name": e.key, "ms_per_call":
                                  getattr(e, key) / 1e3 / reps} for e in top]
         out["fused_top_ops_by"] = key
+    if dev.type == "cuda":
+        out["graphs"] = graphs.graph_stats()
     return out
+
+
+def _clone_ms(payload: torch.Tensor, iters: int) -> float:
+    """Device ms of one clone of a payload, as a graph's replay makes
+    it: `iters` back to back between CUDA events."""
+    payload.clone()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        payload.clone()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 # -- end to end ---------------------------------------------------------

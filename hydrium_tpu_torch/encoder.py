@@ -32,7 +32,9 @@ as the numpy backend does.
 Dispatch and drain overlap.  A dispatch copies its pixels into a
 pinned staging buffer and returns; one of two prep workers ("hyd-prep",
 process-wide) uploads them and enqueues the packed pipeline, as
-hydrium_tpu's dispatch-preparation pool does; its payload comes back on
+hydrium_tpu's dispatch-preparation pool does (on a card by replaying the
+CUDA graph of the dispatch's static key, ops/graphs.py, as hydrium_tpu
+runs one jitted executable per key); its payload comes back on
 a thread of its own ("hyd-fetch": the aux prefix first, then
 exactly the stream words it names, each into a pinned buffer behind a
 CUDA event).  One-frame mode keeps HYDRIUM_INFLIGHT (default 3) LF
@@ -79,6 +81,7 @@ from .jxl.frame import (FrameGeometry, HFStream, LFGroupGeometry,
 from .jxl.tokcode import LF_CLASS, TokenCodec
 from .models import get_profile
 from .ops import front as _front
+from .ops import graphs as _graphs
 from .ops import packed as _packed
 from .ops import reference as np_ops
 from .ops.constants import packed_aux_len
@@ -255,6 +258,18 @@ class _HostCopy:
         return self._host.numpy()
 
 
+def buffer_shapes(lfg) -> tuple:
+    """(buf_h, buf_w, ubuf_h, ubuf_w) of a dispatch: 256-multiple
+    buffers of the true extent, and the upload bucketed to 32 rows and
+    columns (the JAX package's bucketing, so both compute the same
+    groups)."""
+    h, w = lfg.height, lfg.width
+    buf_h = min(lfg.tile_count_y << 8, ((h + 255) >> 8) << 8)
+    buf_w = min(lfg.tile_count_x << 8, ((w + 255) >> 8) << 8)
+    return (buf_h, buf_w, min(buf_h, ((h + 31) >> 5) << 5),
+            min(buf_w, ((w + 31) >> 5) << 5))
+
+
 class _TorchDispatch:
     """One LF group (or tile, or stack of tiles) on the device.  Making
     one copies the caller's pixels into a pinned staging buffer
@@ -274,12 +289,7 @@ class _TorchDispatch:
                  stats: EncodeStats, *, fused: bool = False,
                  lf_seg_vb: int = 0) -> None:
         h, w = lfg.height, lfg.width
-        # 256-multiple buffers of the true extent, uploads bucketed to 32
-        # (the JAX package's bucketing, so both compute the same groups)
-        self.buf_h = min(lfg.tile_count_y << 8, ((h + 255) >> 8) << 8)
-        self.buf_w = min(lfg.tile_count_x << 8, ((w + 255) >> 8) << 8)
-        ubuf_h = min(self.buf_h, ((h + 31) >> 5) << 5)
-        ubuf_w = min(self.buf_w, ((w + 31) >> 5) << 5)
+        self.buf_h, self.buf_w, ubuf_h, ubuf_w = buffer_shapes(lfg)
         dtype = torch.from_numpy(np.empty(0, np.asarray(pixels).dtype)).dtype
         # referenced until the fetch is done: the upload from it is
         # asynchronous
@@ -327,8 +337,9 @@ class _TorchDispatch:
         self._prep.result()
 
     def _dispatch(self) -> None:
-        """Enqueue the packed pipeline with a snapshot of the codec, and
-        the copy of its aux prefix: the walker must decode with exactly
+        """Enqueue the packed pipeline (on a card: replay the graph of
+        its key, ops/graphs.py) with a snapshot of the codec, and the
+        copy of its aux prefix: the walker must decode with exactly
         the table the device packed with.  The LUT is sliced to this
         frame's class count so the walker's class = cluster %
         (lut.size/4096) matches the device's."""
@@ -336,12 +347,17 @@ class _TorchDispatch:
         self.tok_lut = lut[:self.tok_classes]
         self.lf_lut = lut[LF_CLASS]
         A = packed_aux_len(self.buf_h, self.buf_w)
+        # the code tables go in as the copy of a host array: on a card
+        # into the static inputs of the key's graph, from pinned memory
+        tables = torch.from_numpy(np.stack([lens, codes]).astype(np.int32))
+        if self.device.type == "cuda":
+            run, tables = _graphs.encode_lfg_packed, tables.pin_memory()
+        else:
+            run = _packed.encode_lfg_packed
         with _DISPATCH_LOCK, _current(self.device):
-            self._combined = _packed.encode_lfg_packed(
+            self._combined = run(
                 self.front, self.px, self.lfg.height, self.lfg.width,
-                self.presets,
-                torch.as_tensor(lens.astype(np.int32), device=self.device),
-                torch.as_tensor(codes.astype(np.int32), device=self.device),
+                self.presets, tables[0], tables[1],
                 buf_h=self.buf_h, buf_w=self.buf_w,
                 linear_light=self.linear_light, sample_kind=self.sample_fmt,
                 tok_classes=self.tok_classes, wide_residues=self.wide,

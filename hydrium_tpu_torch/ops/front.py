@@ -268,6 +268,28 @@ def tokenize_flat(q: torch.Tensor, nz_flat: torch.Tensor,
             residue_bits.to(torch.uint8), valid_len)
 
 
+def repeat_each(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x [n] -> [n * k], each element k times in a row: what
+    repeat_interleave(k) gives, as an expand, so that no operation needs
+    its output size from the device (a CUDA graph captures it)."""
+    return x[:, None].expand(x.shape[0], k).reshape(-1)
+
+
+def extent_ok(height: int, width: int, *, buf_h: int, buf_w: int,
+              device) -> torch.Tensor:
+    """bool [N] in flat group order: whether a block-channel row lies
+    inside its group's true varblock extent (blocks beyond it emit
+    nothing)."""
+    gcy, gcx = buf_h >> 8, buf_w >> 8
+    vh, vw = (height + 7) >> 3, (width + 7) >> 3
+    gbh = (vh - torch.arange(gcy, device=device) * 32).clamp(0, 32)
+    gbw = (vw - torch.arange(gcx, device=device) * 32).clamp(0, 32)
+    by = torch.arange(32, device=device)
+    ok = ((by[None, :, None, None] < gbh[:, None, None, None])
+          & (by[None, None, None, :] < gbw[None, None, :, None]))
+    return repeat_each(ok.permute(0, 2, 1, 3).reshape(-1), 3)
+
+
 def tokenize_lfg(q_flat: torch.Tensor, presets: torch.Tensor, height: int,
                  width: int, *, buf_h: int, buf_w: int,
                  clusters_per_preset: int, tabs) -> Dict[str, torch.Tensor]:
@@ -276,23 +298,14 @@ def tokenize_lfg(q_flat: torch.Tensor, presets: torch.Tensor, height: int,
     varblock extent.  presets: [G] preset per buffer group; tabs: any
     object with the cnzc3 / cfc3 tables (a FrontEnd)."""
     dev = q_flat.device
-    gcy, gcx = buf_h >> 8, buf_w >> 8
-    G = gcy * gcx
+    G = (buf_h >> 8) * (buf_w >> 8)
     nz_flat = (q_flat != 0).sum(dim=-1)
-    preset_flat = presets.to(dev).repeat_interleave(1024 * 3)
+    preset_flat = repeat_each(presets.to(dev), 1024 * 3)
     blockctx_flat = torch.arange(3, device=dev).repeat(G * 1024)
     tokens, clusters, residues, residue_bits, valid_len = tokenize_flat(
         q_flat, nz_flat, preset_flat, blockctx_flat, clusters_per_preset,
         tabs)
-
-    # blocks beyond each group's true varblock extent emit nothing
-    vh, vw = (height + 7) >> 3, (width + 7) >> 3
-    gbh = (vh - torch.arange(gcy, device=dev) * 32).clamp(0, 32)
-    gbw = (vw - torch.arange(gcx, device=dev) * 32).clamp(0, 32)
-    by = torch.arange(32, device=dev)
-    ok = ((by[None, :, None, None] < gbh[:, None, None, None])
-          & (by[None, None, None, :] < gbw[None, None, :, None]))
-    ok = ok.permute(0, 2, 1, 3).reshape(-1).repeat_interleave(3)
+    ok = extent_ok(height, width, buf_h=buf_h, buf_w=buf_w, device=dev)
     valid_len = torch.where(ok, valid_len, 0)
     return {"tokens": tokens, "clusters": clusters, "residues": residues,
             "residue_bits": residue_bits, "valid_len": valid_len}
@@ -329,16 +342,17 @@ def front_tokens(front: FrontEnd, pixels: torch.Tensor, height: int,
 def cluster_histogram(out: Dict[str, torch.Tensor],
                       num_clusters: int) -> torch.Tensor:
     """Per-cluster token histogram [num_clusters, 128] over valid slots
-    (tokens clipped to 127), the `hist` output of encode_lfg."""
+    (tokens clipped to 127), the `hist` output of encode_lfg: one
+    scatter-add over the flat bin cluster * 128 + token."""
     tokens = out["tokens"].to(torch.int64) & 0xFFFF
     valid_len = out["valid_len"]
     dev = tokens.device
     mask = (torch.arange(64, device=dev)[None, :]
             < valid_len[:, None]).to(torch.int32)
-    hist = torch.zeros((num_clusters, 128), dtype=torch.int32, device=dev)
-    hist.index_put_((out["clusters"].to(torch.int64),
-                     tokens.clamp(max=127)), mask, accumulate=True)
-    return hist
+    bins = out["clusters"].to(torch.int64) * 128 + tokens.clamp(max=127)
+    hist = torch.zeros(num_clusters * 128, dtype=torch.int32, device=dev)
+    hist.scatter_add_(0, bins.reshape(-1), mask.reshape(-1))
+    return hist.reshape(num_clusters, 128)
 
 
 def encode_lfg(front: FrontEnd, pixels: torch.Tensor, height: int,

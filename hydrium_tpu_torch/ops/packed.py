@@ -29,6 +29,14 @@ from .front import _MASK32, bits32, hybridize, u32
 from .transport import hf_transport_streams
 
 
+def lf_histogram(lf_t: torch.Tensor) -> torch.Tensor:
+    """Counts of the LF tokens lf_t (int64, already clamped to 63) in 64
+    fixed bins: bincount(lf_t, minlength=64) without the device read of
+    the maximum that sizes bincount's output."""
+    hist = torch.zeros(64, dtype=torch.int64, device=lf_t.device)
+    return hist.scatter_add_(0, lf_t, torch.ones_like(lf_t))
+
+
 def _lf_pack_stream(lf_res: torch.Tensor, tok_len, tok_code,
                     wide_residues: bool):
     """The format-v4 LF residual stream: per value one field = transport
@@ -42,7 +50,7 @@ def _lf_pack_stream(lf_res: torch.Tensor, tok_len, tok_code,
     lf_t = lf_tok.clamp(max=63)
     lf_code = tok_code.to(torch.int64)[9 * 64 + lf_t]
     lf_len = tok_len.to(torch.int64)[9 * 64 + lf_t]
-    hist_lf = torch.bincount(lf_t, minlength=64)
+    hist_lf = lf_histogram(lf_t)
     lf_nbits = lf_len + lf_rbits
     lf_lo = (lf_code | (lf_residue << lf_len)) & _MASK32
     lf_fit_fast = torch.all(lf_nbits <= 32)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Pair two versions of the port on the card over the rows that the
 dispatch-preparation pool touches: the bench's smooth and noisy
-(`value`) 3840x2160 one-frame encodes through Encoder.send_tile, and
-the command line (hydrium_tpu_torch.cli.main, in process) on the noisy
-image written as a PNG.
+(`value`) 3840x2160 one-frame encodes through Encoder.send_tile, the
+command line (hydrium_tpu_torch.cli.main, in process) on the noisy
+image written as a PNG, and the noisy image tiled (256^2 tiles, one
+send_tile_batch call a row) with the fused front (`tiled_fused`).
 
     python3 profile_prepare.py [--root DIR] [--iters N] [--out PATH]
 
@@ -14,11 +15,17 @@ each image once to warm the transport codec (its own temporary warm
 state), then `iters` timed encodes a row: the wall (first tile to last
 output, device synchronized), the wall of each send_tile call, the
 stages dispatch (the calling thread), prepare (the prep workers; absent
-in a version without the pool) and fetch_wait.  Every encode of a row
-must give the same bytes, and both sides the same sha256.  Prints the
-card's name and power limit, one JSON line a child, then one summary
-line: per row and side, the median and the quartile distance of all its
-walls, and the same for the send_tile calls.
+in a version without the pool) and fetch_wait, and, for the rows an
+Encoder of the script's own runs (not the CLI), the duration of every
+dispatch[y,x] timeline event on a "hyd-prep" thread: the upload
+excluded, the enqueue of one dispatch (or, with ops/graphs.py, its
+graph's replay) with the code tables.  Every encode of a row must give
+the same bytes, and both sides the same sha256.  A child also reports
+its graphs (ops/graphs.py::graph_stats) where its version has them.
+Prints the card's name and power limit, one JSON line a child, then one
+summary line: per row and side, the median and the quartile distance
+of all its walls, and the same for the send_tile calls and the
+dispatch events.
 
     python3 profile_prepare.py --child ITERS
 
@@ -39,7 +46,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def _row(encode, iters: int) -> dict:
-    walls, sends, stages, digest = [], [], [], None
+    walls, sends, stages, events, digest = [], [], [], [], None
     for _ in range(iters):
         wall, calls, st, data = encode()
         d = hashlib.sha256(data).hexdigest()
@@ -50,7 +57,11 @@ def _row(encode, iters: int) -> dict:
         sends.extend(calls)
         stages.append({k: st.stage_seconds.get(k, 0.0)
                        for k in ("dispatch", "prepare", "fetch_wait")})
+        events.extend(1e3 * (t1 - t0) for name, t0, t1, thread
+                      in st.events or () if name.startswith("dispatch[")
+                      and thread.startswith("hyd-prep"))
     return {"walls_s": walls, "send_calls_s": sends, "sha256": digest,
+            "dispatch_event_ms": events,
             "stages_s": {k: statistics.median(s[k] for s in stages)
                          for k in stages[0]}}
 
@@ -72,6 +83,7 @@ def child(iters: int) -> int:
     def one_frame(img):
         h, w = img.shape[:2]
         enc = H.Encoder(H.ImageMetadata(width=w, height=h), device="cuda")
+        enc.stats.enable_timeline()
         out, calls = bytearray(), []
         t0 = time.perf_counter()
         for ty in range(-(-h // 2048)):
@@ -81,6 +93,25 @@ def child(iters: int) -> int:
                                   tx * 2048:(tx + 1) * 2048], tx, ty)
                 calls.append(time.perf_counter() - t1)
                 out.extend(enc.take_output())
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, calls, enc.stats, bytes(out)
+
+    def tiled_fused(img):
+        h, w = img.shape[:2]
+        enc = H.Encoder(H.ImageMetadata(width=w, height=h,
+                                        tile_size_shift_x=0,
+                                        tile_size_shift_y=0),
+                        device="cuda", fused_front=True)
+        enc.stats.enable_timeline()
+        out, calls = bytearray(), []
+        t0 = time.perf_counter()
+        for ty in range(-(-h // 256)):
+            t1 = time.perf_counter()
+            enc.send_tile_batch([(img[ty * 256:(ty + 1) * 256,
+                                      tx * 256:(tx + 1) * 256], tx, ty)
+                                 for tx in range(-(-w // 256))])
+            calls.append(time.perf_counter() - t1)
+            out.extend(enc.take_output())
         torch.cuda.synchronize()
         return time.perf_counter() - t0, calls, enc.stats, bytes(out)
 
@@ -102,11 +133,18 @@ def child(iters: int) -> int:
     rows = {}
     for name, encode in (("smooth", lambda: one_frame(smooth)),
                          ("value", lambda: one_frame(noisy)),
-                         ("cli", run_cli)):
+                         ("cli", run_cli),
+                         ("tiled_fused", lambda: tiled_fused(noisy))):
         encode()                    # the codec adapts to this content
         rows[name] = _row(encode, iters)
     tmp.cleanup()
-    print(json.dumps({"root": os.getcwd(), "rows": rows}), flush=True)
+    try:
+        from hydrium_tpu_torch.ops.graphs import graph_stats
+        graphs = graph_stats()
+    except ImportError:             # a version without graphs
+        graphs = None
+    print(json.dumps({"root": os.getcwd(), "rows": rows, "graphs": graphs}),
+          flush=True)
     return 0
 
 
@@ -155,9 +193,11 @@ def main() -> int:
             mine = [rows[row] for lab, rows in runs if lab == label]
             walls = [w for r in mine for w in r["walls_s"]]
             sends = [c for r in mine for c in r["send_calls_s"]]
+            events = [e for r in mine for e in r["dispatch_event_ms"]]
             summary[f"{row}_{label}"] = {
                 "wall_s": _quartiles(walls),
                 "send_call_s": _quartiles(sends) if sends else None,
+                "dispatch_event_ms": _quartiles(events) if events else None,
                 "stages_s_by_run": [r["stages_s"] for r in mine]}
     print(json.dumps(summary), flush=True)
     if args.out:

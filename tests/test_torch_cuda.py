@@ -18,6 +18,8 @@ from hydrium_tpu_torch.ops import bitpack as TB
 from hydrium_tpu_torch.ops import constants as C
 from hydrium_tpu_torch.ops import front as TF
 from hydrium_tpu_torch.ops import frontend as TFE
+from hydrium_tpu_torch.ops import graphs as TG
+from hydrium_tpu_torch.ops import packed as TP
 from hydrium_tpu_torch.ops import transport as TT
 
 pytestmark = pytest.mark.cuda
@@ -461,10 +463,18 @@ def test_card_front_flip_rate(cuda):
     assert flips <= FLIP_TOL * (qg.numel() + lg.numel()), flips
 
 
-def test_card_encode_equals_cpu_encode_with_shared_front(cuda, monkeypatch):
-    """With the front's integers taken from the CPU front in both runs,
-    the card's kernels, payload, copy-back and walk must give the CPU
-    path's bytes."""
+def _eager_on_card(front, pixels, height, width, presets, tok_len, tok_code,
+                   **kw):
+    return TP.encode_lfg_packed(front, pixels, height, width, presets,
+                                tok_len.to(pixels.device),
+                                tok_code.to(pixels.device), **kw)
+
+
+def _patch_cpu_front(monkeypatch):
+    """The front's integers from the CPU front, and so the eager packed
+    pipeline on the card in place of the dispatch's graph (a front on
+    the host cannot be captured; the graph tests below hold the graphs
+    to the eager pipeline word for word)."""
     real = TF.front_tokens
 
     def cpu_front(front, pixels, *a, **k):
@@ -472,6 +482,14 @@ def test_card_encode_equals_cpu_encode_with_shared_front(cuda, monkeypatch):
         return {key: v.to(pixels.device) for key, v in out.items()}
 
     monkeypatch.setattr(TF, "front_tokens", cpu_front)
+    monkeypatch.setattr(TG, "encode_lfg_packed", _eager_on_card)
+
+
+def test_card_encode_equals_cpu_encode_with_shared_front(cuda, monkeypatch):
+    """With the front's integers taken from the CPU front in both runs,
+    the card's kernels, payload, copy-back and walk must give the CPU
+    path's bytes."""
+    _patch_cpu_front(monkeypatch)
     rng = np.random.default_rng(4)
     img = rng.integers(0, 256, (300, 2100, 3), dtype=np.uint8)
     want = hydrium_tpu_torch.encode_image(img, device="cpu")
@@ -489,13 +507,7 @@ def test_card_u16_encode_equals_cpu_encode_with_shared_front(cuda,
     """16-bit samples through pinned staging, the upload and the kernels:
     with the front's integers from the CPU front, the card's bytes equal
     the CPU's, for a full LF group beside a 224-row one."""
-    real = TF.front_tokens
-
-    def cpu_front(front, pixels, *a, **k):
-        out = real(TF.FrontEnd.from_tables(), pixels.cpu(), *a, **k)
-        return {key: v.to(pixels.device) for key, v in out.items()}
-
-    monkeypatch.setattr(TF, "front_tokens", cpu_front)
+    _patch_cpu_front(monkeypatch)
     img = np.random.default_rng(16).integers(0, 65536, (224, 3000, 3),
                                              dtype=np.uint16)
     want = hydrium_tpu_torch.encode_image(img, device="cpu")
@@ -509,13 +521,7 @@ def test_card_tiled_encode_equals_cpu_encode_with_shared_front(cuda,
                                                               monkeypatch):
     """Tiled mode (stacked chunks and edge tiles) with the front's
     integers from the CPU front: the card's bytes equal the CPU's."""
-    real = TF.front_tokens
-
-    def cpu_front(front, pixels, *a, **k):
-        out = real(TF.FrontEnd.from_tables(), pixels.cpu(), *a, **k)
-        return {key: v.to(pixels.device) for key, v in out.items()}
-
-    monkeypatch.setattr(TF, "front_tokens", cpu_front)
+    _patch_cpu_front(monkeypatch)
     img = np.random.default_rng(5).integers(0, 256, (600, 1100, 3),
                                             dtype=np.uint8)
     want = hydrium_tpu_torch.encode_image(img, 0, device="cpu")
@@ -552,3 +558,188 @@ def test_card_dryrun_multichip(cuda):
     syms, nbytes = dryrun_multichip(8, ["cuda:0"] * 8)
     assert abs(syms - want) <= FLIP_TOL * want
     assert nbytes > 0
+
+
+# -- CUDA graphs of the packed pipeline (ops/graphs.py) ----------------
+
+# (kind, linear, h, w, tile_count_y, tile_count_x, lf_seg_vb): every
+# dispatch shape of a one-frame 4K encode, the tiled stacked chunk and
+# edge tile, an 8K u16 LF group (and its corner) and an f32 linear frame
+GRAPH_SHAPES = [
+    ("uint8", False, 2048, 2048, 8, 8, 0),
+    ("uint8", False, 2048, 1792, 8, 8, 0),
+    ("uint8", False, 112, 2048, 8, 8, 0),
+    ("uint8", False, 112, 1792, 8, 8, 0),
+    ("uint8", False, 4096, 256, 16, 1, 32),
+    ("uint8", False, 112, 256, 1, 1, 0),
+    ("uint16", False, 2048, 2048, 8, 8, 0),
+    ("uint16", False, 224, 1536, 8, 8, 0),
+    ("float32", True, 768, 1024, 8, 8, 0),
+]
+
+
+def _graph_inputs(dev, kind, linear, h, w, tcy, tcx, seg, *, seed=0,
+                  preset=0, codec_seed=None, wide=False, fused=False):
+    """(args, kw) of one dispatch as _TorchDispatch makes it."""
+    from hydrium_tpu_torch.jxl.frame import LFGroupGeometry
+
+    lfg = LFGroupGeometry(x=0, y=0, width=w, height=h, tile_count_x=tcx,
+                          tile_count_y=tcy)
+    buf_h, buf_w, uh, uw = TE.buffer_shapes(lfg)
+    px = torch.tensor(_front_pixels(kind, h, w, (uh, uw), seed), device=dev)
+    G = (buf_h >> 8) * (buf_w >> 8)
+    presets = torch.full((G,), preset, dtype=torch.int32, device=dev)
+    codec = TokenCodec()
+    if codec_seed is not None:
+        codec.update(np.random.default_rng(codec_seed).integers(
+            0, 500, (10, 64)))
+    lens, codes, _ = codec.tables()
+    tabs = torch.from_numpy(np.stack([lens, codes]).astype(np.int32))
+    tabs = tabs.pin_memory()
+    kw = dict(buf_h=buf_h, buf_w=buf_w, linear_light=linear,
+              sample_kind=kind, lf_seg_vb=seg, tok_classes=9,
+              wide_residues=wide, fused=fused)
+    return (px, h, w, presets, tabs[0], tabs[1]), kw
+
+
+def _eager(front, args, kw):
+    px, h, w, presets, tl, tc = args
+    return TP.encode_lfg_packed(front, px, h, w, presets, tl.to(px.device),
+                                tc.to(px.device), **kw)
+
+
+@pytest.fixture
+def graph_cache(cuda, monkeypatch):
+    """A graph cache of this test's own."""
+    cache = TG.GraphCache()
+    monkeypatch.setattr(TG, "_CACHE", cache)
+    yield cache
+    cache.clear()
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["torch", "fused"])
+@pytest.mark.parametrize("kind,linear,h,w,tcy,tcx,seg", GRAPH_SHAPES)
+def test_graph_payload_equals_eager(graph_cache, kind, linear, h, w, tcy,
+                                    tcx, seg, fused):
+    """Graph against eager word for word at each key, captured then
+    replayed with other pixels, presets and code tables (the bootstrap's
+    table change between replays)."""
+    front = TF.FrontEnd.from_tables().to("cuda")
+    shape = (kind, linear, h, w, tcy, tcx, seg)
+    for seed, codec_seed in ((1, None), (2, 7), (3, 8)):
+        args, kw = _graph_inputs("cuda", *shape, seed=seed, preset=seed % 2,
+                                 codec_seed=codec_seed, fused=fused)
+        want = _eager(front, args, kw)
+        got = TG.encode_lfg_packed(front, *args, **kw)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    st = TG.graph_stats()["cuda:0"]
+    assert (st["captures"], st["replays"], st["live"]) == (1, 3, 1)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["torch", "fused"])
+def test_graph_wide_geometry_equals_eager(graph_cache, fused):
+    """The wide residue geometry is a key of its own, equal to eager."""
+    front = TF.FrontEnd.from_tables().to("cuda")
+    for wide in (False, True):
+        args, kw = _graph_inputs("cuda", "uint8", False, 2048, 2048, 8, 8,
+                                 0, seed=4, wide=wide, fused=fused)
+        assert torch.equal(TG.encode_lfg_packed(front, *args, **kw),
+                           _eager(front, args, kw))
+    assert TG.graph_stats()["cuda:0"]["captures"] == 2
+
+
+@pytest.mark.parametrize("kind,linear,h,w,tcy,tcx,seg", GRAPH_SHAPES)
+def test_graph_body_never_waits_on_the_device(cuda, kind, linear, h, w,
+                                              tcy, tcx, seg):
+    """No operation of the eager body syncs with the host (what a
+    capture cannot hold): one warm call, then both fronts under
+    torch.cuda.set_sync_debug_mode("error")."""
+    front = TF.FrontEnd.from_tables().to(cuda)
+    runs = []
+    for fused in (False, True):
+        args, kw = _graph_inputs(cuda, kind, linear, h, w, tcy, tcx, seg,
+                                 fused=fused)
+        dev_args = args[:4] + tuple(t.to(cuda) for t in args[4:])
+        TP.encode_lfg_packed(front, *dev_args, **kw)
+        runs.append((dev_args, kw))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for dev_args, kw in runs:
+            TP.encode_lfg_packed(front, *dev_args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_graph_interleaved_keys_and_payloads_in_flight(graph_cache):
+    """Two keys replayed in turns, three payloads of one key in flight
+    before any is read: each equals its eager payload."""
+    front = TF.FrontEnd.from_tables().to("cuda")
+    shapes = [("uint8", False, 2048, 1792, 8, 8, 0),
+              ("uint8", False, 112, 256, 1, 1, 0)]
+    cases = [_graph_inputs("cuda", *shapes[i % 2], seed=i, preset=i % 2,
+                           codec_seed=i, fused=i % 3 == 0)
+             for i in range(6)]
+    got = [TG.encode_lfg_packed(front, *args, **kw) for args, kw in cases]
+    for (args, kw), g in zip(cases, got):
+        assert torch.equal(g, _eager(front, args, kw))
+    assert TG.graph_stats()["cuda:0"]["replays"] == 6
+
+
+def test_graph_replay_counts_captured_launches(graph_cache):
+    """A capture (warm-up included) leaves the counters as they were and
+    every replay adds the captured launches: one of each kernel for the
+    fused front, none of frontend_tokens for the default front."""
+    front = TF.FrontEnd.from_tables().to("cuda")
+    wrappers = (TT.transport_prep, TB.pack_chunks, TFE.frontend_tokens,
+                TFE.frontend_groups)
+    for fused in (False, True):
+        args, kw = _graph_inputs("cuda", "uint8", False, 112, 256, 1, 1, 0,
+                                 fused=fused)
+        for _ in range(3):
+            before = [f.launches for f in wrappers]
+            TG.encode_lfg_packed(front, *args, **kw)
+            rose = [f.launches - b for f, b in zip(wrappers, before)]
+            assert rose == [1, 1, int(fused), 0], (fused, rose)
+
+
+def test_graph_replays_keep_device_memory_steady(graph_cache):
+    """After the capture, a replay allocates nothing but the clone it
+    returns: the growth is the clones, each in a block the allocator may
+    round up by less than 2 MiB (it does not split off a remainder of up
+    to 1 MiB), where one eager dispatch allocates hundreds of MiB."""
+    front = TF.FrontEnd.from_tables().to("cuda")
+    args, kw = _graph_inputs("cuda", "uint8", False, 2048, 2048, 8, 8, 0,
+                             fused=True)
+    TG.encode_lfg_packed(front, *args, **kw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    outs = []
+    for _ in range(3):
+        outs.append(TG.encode_lfg_packed(front, *args, **kw))
+        torch.cuda.synchronize()
+        clones = sum(o.numel() * o.element_size() for o in outs)
+        grown = torch.cuda.memory_allocated() - base
+        assert clones <= grown < clones + len(outs) * 2 ** 21, (grown, clones)
+    assert graph_cache.stats()["cuda:0"]["graphs"][0]["reserved_mib"] > 0
+
+
+def test_graph_capture_error_reaches_the_caller(cuda, monkeypatch):
+    """An operation that syncs with the host cannot be captured: the
+    encode raises it, and nothing runs the eager pipeline in its place."""
+    monkeypatch.setattr(TG, "_CACHE", TG.GraphCache())
+    real = TP.pack_payload
+
+    def syncing(out, *a, **k):
+        if int(out["valid_len"].sum()) < 0:     # a device-to-host read
+            raise AssertionError
+        return real(out, *a, **k)
+
+    monkeypatch.setattr(TP, "pack_payload", syncing)
+    img = np.random.default_rng(7).integers(0, 256, (300, 400, 3),
+                                            dtype=np.uint8)
+    with pytest.raises(RuntimeError):
+        hydrium_tpu_torch.encode_image(img, device="cuda")
+    assert TG.graph_stats() == {"cuda:0": {
+        "captures": 0, "replays": 0, "evictions": 0, "live": 0,
+        "graphs": []}}

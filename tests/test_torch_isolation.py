@@ -54,6 +54,15 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def test_graph_module_is_scanned():
+    """ops/graphs.py, the counterpart of the JAX package's jitted
+    pipeline, is among the files scanned, and imports neither."""
+    path = REPO / "hydrium_tpu_torch" / "ops" / "graphs.py"
+    assert path in _port_files()
+    roots = {root for _line, root in _imported_roots(path)}
+    assert "torch" in roots and not roots & set(FORBIDDEN)
+
+
 def test_native_sources_include_nothing_outside_the_port():
     """The port's C++ and CUDA sources (its native plane and its
     sanitizer self-test among them) include system headers, or files of
