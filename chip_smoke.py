@@ -37,24 +37,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
    encode with each front, the tiled stacked chunk and edge tile with
    the fused front), with narrow and with wide residues: the packed
    pipeline eagerly, once under torch.cuda.set_sync_debug_mode("error"),
-   and replayed from its graph, payload words equal, also with other
-   pixels and code tables; each replay adds the captured launches to
-   the counters.  Per key the eager and the graph call, the capture's
-   seconds and reserved MiB.  After phase 5, every graph the cache keeps
-   has a key checked here;
+   then four times through the graph cache with two sets of pixels,
+   presets and code tables in turn (eager, captured and replayed,
+   replayed, replayed), payload words equal; each call raises the
+   counters by one dispatch's launches.  Per key the eager and the graph
+   call, the capture's seconds and reserved MiB.  Then the cache is
+   emptied, so that phases 4 and on start as a process does (a key's
+   first dispatch eager, its second captured).  After phase 5, every
+   graph the cache keeps has a key checked here;
 4. one-frame mode: hydrium_tpu_torch.encode_image on a 3840x2160 u8
    image (noise + sinusoid, from a seed), one frame of four LF groups.
    Checks: all four LF groups packed, no fallback, each kernel launched
    exactly as often as the dispatches need, the JPEG XL signature, a
    byte-identical second encode, the same with the fused front (the
-   tokens epilogue once per dispatch, the q/dc epilogue never), the
+   tokens epilogue once per dispatch, the q/dc epilogue never; its
+   launches held to a torch.profiler trace, as phase 5's), the
    card's front integers against the port's CPU front on one 2048^2 LF
    group (flip rate <= 1e-4), and, where libjxl loads, decode PSNR;
 5. tiled mode: the same image in 256^2 tiles, sent one row at a time
    through Encoder.send_tile_batch with the fused front (the main
-   path).  Checks: every stacked chunk and edge tile packed, no
-   fallback, each kernel launched exactly as often as the dispatches
-   need, the signature, a
+   path), under torch.profiler.  Checks: every stacked chunk and edge
+   tile packed, no fallback, each kernel launched exactly as often as
+   the dispatches need, by the wrappers' counts and by the kernels the
+   trace saw on the device, which must be equal (a replay adds the
+   launches of its graph to the counts without running the wrappers;
+   the trace sees what it launched; a trace that lost device events is
+   taken again, up to three times), the signature, a
    byte-identical second encode, decode PSNR where libjxl loads; also
    the warm time and launches with the unfused front.  The sha256 of
    the one-frame (both fronts) and tiled 4K files is printed, so two
@@ -135,13 +143,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    often as the dispatches need, and the RSS growth of the CLI and of
    each process (peak RSS less the resident size after the card is up
    and one small encode has run) at most half the frame's raw bytes.
-   Every wall is printed with the card's name and power limit, then the
-   script's whole wall.
+   Every wall is printed with the card's name and power limit, with each
+   process's device memory reserved at its peak and what its live CUDA
+   graphs hold of it, then the script's whole wall.
 Each encode path's launch counts are zeroed just before it and read
-just after it.  A dispatch is a packed LF group, stacked chunk or edge
-tile, a wide retry, or the cold-start bootstrap of the transport codec
-(lfg_packed + wide_retries + codec_bootstraps); the codec's warm state
-goes to a temporary directory, so the first encode starts cold.
+just after it.  The kernels line's "launches" is what phase 5's trace
+saw ("launches_counted": the wrappers' count, equal to it).  A dispatch
+is a packed LF group, stacked chunk or edge tile, a wide retry, or the
+cold-start bootstrap of the transport codec (lfg_packed + wide_retries
++ codec_bootstraps); the codec's warm state goes to a temporary
+directory, so the first encode starts cold.
 
 Prints one JSON line of kernel results, then as the last line
 {"ok": true, "device": {...}}.
@@ -1054,13 +1065,14 @@ def check_graphs(img: np.ndarray, dev, smi: str) -> dict:
     """Phase 3, graphs: for each dispatch shape of phases 4 and 5
     (graph_cases), narrow and wide residues, the packed pipeline run
     eagerly, once more under torch.cuda.set_sync_debug_mode("error")
-    (no operation of the body may wait on the device), then through
-    ops/graphs.py (its first call captures): the graph's payload words
-    equal the eager ones; again with other pixels and other code tables,
-    replayed with no new capture, and with the launch counters risen by
-    what the capture recorded.  Per key: the eager and the graph call
-    (median of 10 between CUDA events, host work included), the
-    capture's seconds and reserved MiB.  Returns {name: record}."""
+    (no operation of the body may wait on the device), then four times
+    through ops/graphs.py, with two sets of pixels, presets and code
+    tables in turn (its first call runs eagerly, its second captures and
+    replays, the others replay): each payload's words equal the eager
+    ones, and each call raises the launch counters by one dispatch's
+    launches.  Per key: the eager and the graph call (median of 10
+    between CUDA events, host work included), the capture's seconds and
+    reserved MiB.  Returns {name: record}."""
     import torch
 
     from hydrium_tpu_torch.encoder import buffer_shapes
@@ -1107,22 +1119,22 @@ def check_graphs(img: np.ndarray, dev, smi: str) -> dict:
                 want = [eager(0), eager(1)]
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-            before = kernel_counts()
-            got = graphed(0)
-            mid = kernel_counts()
-            got2 = graphed(1)
-            after = kernel_counts()
-            per = {k: mid[k] - before[k] for k in mid}
-            assert per == {k: after[k] - mid[k] for k in mid}, (per, after)
-            assert per["transport_prep"] == per["chunk_pack"] == 1, per
-            assert per["frontend_tokens"] == int(fused), per
-            for g, e in zip((got, got2), want):
+            got = []
+            for i in (0, 1, 0, 1):
+                before = kernel_counts()
+                got.append(graphed(i))
+                after = kernel_counts()
+                per = {k: after[k] - before[k] for k in after}
+                assert per == {"transport_prep": 1, "chunk_pack": 1,
+                               "frontend_tokens": int(fused),
+                               "frontend_groups": 0}, (name, per)
+            for g, e in zip(got, want + want):
                 assert g.shape == e.shape and torch.equal(g, e), (
                     f"{name}: graph payload differs from eager in "
                     f"{int((g != e).sum())} words")
             stats = graphs.graph_stats()[str(inputs[0][0].device)]
             key = graphs.key_text(graphs.packed_key(
-                inputs[0][0], lfg.height, lfg.width, **kw))
+                front, inputs[0][0], lfg.height, lfg.width, **kw))
             rec, = [g for g in stats["graphs"] if g["key"] == key]
             tag = name + ("_wide" if wide else "")
             out[tag] = {"key": key, "ok_word": int(want[0][0]),
@@ -1131,12 +1143,58 @@ def check_graphs(img: np.ndarray, dev, smi: str) -> dict:
                         "graph_ms": _time_ms(lambda: graphed(0), 10),
                         "capture_s": rec["capture_s"],
                         "reserved_mib": rec["reserved_mib"]}
-            print(f"graph {tag} ({key}): payload equal to eager, twice; "
-                  f"eager {out[tag]['eager_ms']:.4f} ms, graph "
+            print(f"graph {tag} ({key}): payload equal to eager, four "
+                  f"times; eager {out[tag]['eager_ms']:.4f} ms, graph "
                   f"{out[tag]['graph_ms']:.4f} ms a call, capture "
                   f"{rec['capture_s']:.3f} s, {rec['reserved_mib']:.1f} MiB "
                   f"reserved, on {smi}", flush=True)
     return out
+
+
+# the device kernel behind each launch counter, by the name a trace
+# gives it (frontend_kernel serves both epilogues of the frontend)
+TRACED_KERNELS = (("transport_prep", "transport_prep_kernel"),
+                  ("chunk_pack", "chunk_pack_streams_kernel"),
+                  ("frontend", "frontend_kernel"))
+
+
+def traced(run, tries: int = 3):
+    """Run an encode path (run() -> (result, stats), a fresh
+    EncodeStats each call) under torch.profiler, its launch counts
+    zeroed just before and read just after.  The device events of the
+    trace count each kernel's launches by name; these must equal the
+    wrappers' counts (frontend_kernel: frontend_tokens + frontend_groups),
+    which a graph's replay adds for the kernels it launches without
+    running the wrappers.  A trace that lost device events (fewer than
+    counted) is taken again with the path run again, up to `tries`
+    times; more than counted fails at once.  Returns (result, stats,
+    counts, {kernel: launches seen}, attempts)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, tries + 1):
+        kernel_counts(zero=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            result, stats = run()
+            torch.cuda.synchronize()
+        counts = kernel_counts()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {k: sum(1 for n in names if kernel in n)
+                for k, kernel in TRACED_KERNELS}
+        want = {"transport_prep": counts["transport_prep"],
+                "chunk_pack": counts["chunk_pack"],
+                "frontend": counts["frontend_tokens"]
+                + counts["frontend_groups"]}
+        if seen == want:
+            return result, stats, counts, seen, attempt
+        assert all(seen[k] <= want[k] for k in want), (
+            f"the trace saw more launches than were counted: {seen}, "
+            f"counted {want}")
+        print(f"profiler trace {attempt} lost device events: saw {seen}, "
+              f"counted {want}; the path runs again", flush=True)
+    raise AssertionError(f"{tries} traces lost device events")
 
 
 def kernel_counts(zero: bool = False) -> dict:
@@ -1413,6 +1471,12 @@ def strip_with_cpu_front(strip: np.ndarray, dev) -> dict:
             "front_flips": flips, "front_values": total}
 
 
+def graphs_mib(rec: dict) -> float:
+    """The device memory that a scale.py record's process kept in live
+    CUDA graphs at its end, MiB."""
+    return sum(st["reserved_mib"] for st in rec["graphs"].values())
+
+
 def check_scale(img16: np.ndarray, dev, smi: str) -> dict:
     """Phase 11 (module docstring): hydrium_tpu_torch/scale.py's configs
     4 and 5 on the card.  Returns {path: record}, each with the launches
@@ -1431,7 +1495,9 @@ def check_scale(img16: np.ndarray, dev, smi: str) -> dict:
               f"({r['mpix_s']:.3f} Mpix/s), cold {r['seconds_cold']:.3f} s, "
               f"on {smi}; PSNR {r['psnr_db']} ({r['psnr_note']}); counters "
               f"{c}, launches {launches}; stages {r['stage_seconds']}; "
-              f"sha256 {r['sha256']}", flush=True)
+              f"sha256 {r['sha256']}; device memory reserved at peak "
+              f"{r['peak_reserved_mib']:.1f} MiB, of it graphs "
+              f"{graphs_mib(r):.1f} MiB", flush=True)
         assert r["codestream_signature"] and not r["level10_container"], r
         assert c.get("lfg_packed") == 12 and not c.get("lfg_fallback"), c
         assert not c.get("codec_bootstraps"), c
@@ -1471,7 +1537,10 @@ def check_scale(img16: np.ndarray, dev, smi: str) -> dict:
               f"{[round(p['wall_s'], 3) for p in procs]} s"
               f", peak RSS {[round(p['peak_rss_mb'], 1) for p in procs]} "
               f"MiB, growth {[round(p['rss_growth_mb'], 1) for p in procs]} "
-              f"MiB (bound {r['raw_mb'] / 2:.1f}); dispatches "
+              f"MiB (bound {r['raw_mb'] / 2:.1f}); device memory reserved at "
+              f"peak {[round(p['peak_reserved_mib'], 1) for p in procs]} "
+              f"MiB, of it graphs {[round(graphs_mib(p), 1) for p in procs]} "
+              f"MiB; dispatches "
               f"{r['dispatches']}, launches {r['launches']}"
               + (f"; PNG written in {r['png_write_s']:.3f} s"
                  if name == "config5_cli" else
@@ -1534,6 +1603,9 @@ def main() -> int:
     results = check_kernels(dev)
     results.extend(check_frontend(img, img16, dev))
     graph_runs = check_graphs(img, dev, smi)
+    # the encodes below start with no graph, as a process does: each
+    # key's first dispatch eager, its second captured
+    graphs.clear_graphs()
 
     # phase 4: one-frame mode
     kernel_counts(zero=True)
@@ -1568,17 +1640,20 @@ def main() -> int:
           f"{mpix / t_warm:.2f} Mpix/s on {smi}; stages {stages}",
           flush=True)
 
-    # the same one-frame encode with the fused front, for its launches
-    kernel_counts(zero=True)
-    f_stats = EncodeStats()
-    fused_data = hydrium_tpu_torch.encode_image(img, device="cuda",
-                                                stats=f_stats,
-                                                fused_front=True)
-    torch.cuda.synchronize()
-    fused_launches = kernel_counts()
+    # the same one-frame encode with the fused front, for its launches,
+    # which a trace holds to the counters
+    def one_frame_fused():
+        st = EncodeStats()
+        return hydrium_tpu_torch.encode_image(
+            img, device="cuda", stats=st, fused_front=True), st
+
+    fused_data, f_stats, fused_launches, fused_seen, tries = traced(
+        one_frame_fused)
     fc = f_stats.counters
     print(f"encode 3840x2160 u8, fused front: {len(fused_data)} bytes, "
-          f"counters {dict(fc)}, launches {fused_launches}", flush=True)
+          f"counters {dict(fc)}, launches {fused_launches}, equal to the "
+          f"kernels a trace saw launched ({fused_seen}, trace {tries})",
+          flush=True)
     assert fc.get("lfg_packed", 0) == 4 and not fc.get("lfg_fallback"), fc
     # the fused front tokenizes in the kernel: the tokens epilogue once
     # per dispatch, the q/dc epilogue never
@@ -1608,18 +1683,22 @@ def main() -> int:
     n_edge = (-(-img.shape[0] // TILE) * -(-img.shape[1] // TILE)) - n_full
     k_stack = 4096 // TILE
     n_chunks = -(-n_full // k_stack)   # rows are full: runs span rows
-    kernel_counts(zero=True)
-    t_stats = EncodeStats()
+    # the main path's launches are those a torch.profiler trace of it saw
+    # (traced: equal to the counters, which replays add to)
+    def tiled_fused():
+        st = EncodeStats()
+        return encode_tiled(img, True, st), st
+
     t0 = time.perf_counter()
-    tiled = encode_tiled(img, True, t_stats)
+    tiled, t_stats, tiled_launches, tiled_seen, tries = traced(tiled_fused)
     t_tiled_cold = time.perf_counter() - t0
-    tiled_launches = kernel_counts()
     tc = t_stats.counters
     dispatches = n_dispatches(tc)
-    print(f"tiled 3840x2160 u8, 256^2 tiles, fused front (cold): "
-          f"{len(tiled)} bytes, {t_tiled_cold:.3f} s, counters {dict(tc)}, "
-          f"launches {tiled_launches}; expect {n_chunks} chunks + {n_edge} "
-          f"edge tiles", flush=True)
+    print(f"tiled 3840x2160 u8, 256^2 tiles, fused front (cold, under "
+          f"torch.profiler): {len(tiled)} bytes, {t_tiled_cold:.3f} s, "
+          f"counters {dict(tc)}, launches {tiled_launches}, equal to the "
+          f"kernels the trace saw launched ({tiled_seen}, trace {tries}); "
+          f"expect {n_chunks} chunks + {n_edge} edge tiles", flush=True)
     assert tc.get("lfg_packed", 0) == n_chunks + n_edge, tc
     assert tc.get("lfg_fallback", 0) == 0, tc
     assert tiled_launches["frontend_tokens"] == dispatches > 0, tiled_launches
@@ -1753,8 +1832,15 @@ def main() -> int:
     paths["conformance"] = conformance["launches"]
     paths["bench_rows"] = bench_run["launches"]
     paths.update({k: v["launches"] for k, v in scale_runs.items()})
+    traced_main = {"transport_prep": tiled_seen["transport_prep"],
+                   "chunk_pack": tiled_seen["chunk_pack"],
+                   "frontend_tokens": tiled_seen["frontend"]
+                   - tiled_launches["frontend_groups"],
+                   "frontend_groups": tiled_launches["frontend_groups"]}
     for r in results:
-        r["launches"] = tiled_launches[r["name"]]
+        # launches seen in the main path's trace, equal to the count
+        r["launches"] = traced_main[r["name"]]
+        r["launches_counted"] = tiled_launches[r["name"]]
         r["on_main_path"] = r["name"] != "frontend_groups"
         r["launches_by_path"] = {k: v[r["name"]] for k, v in paths.items()}
     # the whole wall, build and every phase, before the last two lines

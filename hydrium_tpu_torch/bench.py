@@ -39,7 +39,8 @@ variants: `torch` (ops/packed.py::encode_lfg_packed, default front),
 `fused` (the same with the fused front: all three kernels) and
 `unpacked` (ops/front.py::encode_lfg); on a card also `torch_graph` and
 `fused_graph`, the first two replayed from their CUDA graphs
-(ops/graphs.py, as an Encoder dispatches; the first call captures).
+(ops/graphs.py, as an Encoder dispatches; the first call runs eagerly,
+the second captures).  Two untimed calls start each variant.
 Per variant: `_ms_per_lfg` and `_mpix_s` from `iters` back-to-back
 calls between CUDA events (the host clock on the CPU); `_per_call_ms`,
 the median of single calls each ending in a synchronize;
@@ -274,7 +275,9 @@ def _first_word(result) -> torch.Tensor:
 
 def _time_variant(fn, iters: int, device: torch.device) -> dict:
     """ms per call back to back, the median single call, and the queued
-    cross-check, for one device-plane variant."""
+    cross-check, for one device-plane variant, after two untimed calls
+    (a graph variant's eager first dispatch and its capture)."""
+    fn()
     fn()
     _sync(device)
     if device.type == "cuda":
@@ -324,8 +327,8 @@ def device_plane(iters: int = 50, device="cuda", crop=None) -> dict:
         out[f"{name}_per_call_ms"] = t["per_call_ms"]
         out[f"{name}_queued_ms_per_lfg"] = t["queued_ms_per_lfg"]
         if name.startswith("fused"):
-            # the timing made 1 + 2 * iters + max(iters // 5, 2) calls
-            calls = 1 + 2 * iters + max(iters // 5, 2)
+            # the timing made 2 + 2 * iters + max(iters // 5, 2) calls
+            calls = 2 + 2 * iters + max(iters // 5, 2)
             out[f"{name}_launches_per_call"] = {
                 k: n / calls for k, n in kernel_counts().items()}
         if name.endswith("_graph"):

@@ -22,6 +22,7 @@ exactly.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Dict
 
 import numpy as np
@@ -75,6 +76,13 @@ class FrontEnd(torch.nn.Module):
         self.register_buffer("zz_gather", zz_gather)   # [192] i64
         self.register_buffer("cnzc3", cnzc3)           # [64] i64
         self.register_buffer("cfc3", cfc3)             # [63] i64
+        # the tables' digest: a CUDA graph of the packed pipeline reads
+        # the buffers of the front it was captured with, so its key
+        # (ops/graphs.py) holds this; the tables are constants
+        self.digest = hashlib.sha256(b"".join(
+            t.detach().cpu().numpy().tobytes() for t in (
+                dct_basis, hf_w_emit, lf_shift, zz_gather, cnzc3,
+                cfc3))).hexdigest()[:12]
 
     @classmethod
     def from_tables(cls) -> "FrontEnd":

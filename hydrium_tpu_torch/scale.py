@@ -24,6 +24,10 @@ Configs (BASELINE.md, configs 4 and 5):
   (or to config5_cli's file, which has the same pixels, when both run).
   Per process: wall, peak RSS, RSS growth, bytes.
 
+On a card every config also reports each process's device memory: the
+peak that its caching allocator reserved (config4: over both passes;
+a child: over its life) and the CUDA graphs it kept (ops/graphs.py).
+
 --size N / --height H set the frame of every config that runs (config
 4: 7680x4320, config 5: 16384x16384 by default; --quick: 1920x1080 and
 4096x4096); the height defaults to the width for config 5.  --only may
@@ -212,6 +216,18 @@ def _dispatches(counters) -> int:
             + counters.get("codec_bootstraps", 0))
 
 
+def _device_memory(dev: torch.device) -> dict:
+    """peak_reserved_mib: the most device memory this process's caching
+    allocator reserved since its start or its last reset; graphs: its
+    graph cache (ops/graphs.py::graph_stats).  Nothing on the CPU."""
+    if dev.type != "cuda":
+        return {}
+    from .ops.graphs import graph_stats
+
+    return {"peak_reserved_mib": torch.cuda.max_memory_reserved(dev) / 2**20,
+            "graphs": graph_stats()}
+
+
 def _card(dev: torch.device) -> dict:
     return {"device": str(dev), "card": card_line(dev),
             "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -281,6 +297,8 @@ def config4(h: int = 4320, w: int = 7680, device="cuda",
     launches are counted; both passes must give the same bytes."""
     dev = resolve_device(device)
     img = config4_image(h, w)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     cold, _, dt_cold = _encode_u16(img, dev, fused_front)
     kernel_counts(zero=True)
     data, enc, dt = _encode_u16(img, dev, fused_front)
@@ -301,7 +319,7 @@ def config4(h: int = 4320, w: int = 7680, device="cuda",
             "psnr_db": psnr, "psnr_note": why,
             "stage_seconds": _rounded_stages(enc.stats),
             "counters": counters, "dispatches": _dispatches(counters),
-            "launches": launches}
+            "launches": launches, **_device_memory(dev)}
 
 
 # -- config 5: children ---------------------------------------------------
@@ -363,7 +381,7 @@ def _child_cli(png: str, out: str, device: str) -> dict:
     return {"wall_s": wall, **_rss_record(base, peak), "counters": counters,
             "dispatches": _dispatches(counters),
             "stage_seconds": _rounded_stages(enc.stats),
-            "launches": launches}
+            "launches": launches, **_device_memory(dev)}
 
 
 def _child_multi(addr: str, n: str, rank: str, width: str, height: str,
@@ -396,7 +414,8 @@ def _child_multi(addr: str, n: str, rank: str, width: str, height: str,
     return {"rank": int(rank), "wall_s": wall, **_rss_record(base, peak),
             "bytes": 0 if data is None else len(data),
             "counters": counters, "dispatches": _dispatches(counters),
-            "stage_seconds": _rounded_stages(stats), "launches": launches}
+            "stage_seconds": _rounded_stages(stats), "launches": launches,
+            **_device_memory(dev)}
 
 
 def run_processes(cmds: List[List[str]], workdir: str,
@@ -486,7 +505,8 @@ def config5_cli(width: int = 16384, height: Optional[int] = None,
                                    "rss_growth_mb", "ru_maxrss_mb",
                                    "counters",
                                    "dispatches", "stage_seconds",
-                                   "launches")}}
+                                   "launches", "peak_reserved_mib", "graphs")
+               if k in rec}}
 
 
 def _streaming_reference(img, dev: torch.device, spool_dir: str) -> dict:

@@ -621,19 +621,21 @@ def graph_cache(cuda, monkeypatch):
 @pytest.mark.parametrize("kind,linear,h,w,tcy,tcx,seg", GRAPH_SHAPES)
 def test_graph_payload_equals_eager(graph_cache, kind, linear, h, w, tcy,
                                     tcx, seg, fused):
-    """Graph against eager word for word at each key, captured then
-    replayed with other pixels, presets and code tables (the bootstrap's
-    table change between replays)."""
+    """Graph against eager word for word at each key: its first dispatch
+    eager, its second captured and replayed, two more replayed, each
+    with other pixels, presets and code tables (the bootstrap's table
+    change between replays)."""
     front = TF.FrontEnd.from_tables().to("cuda")
     shape = (kind, linear, h, w, tcy, tcx, seg)
-    for seed, codec_seed in ((1, None), (2, 7), (3, 8)):
+    for seed, codec_seed in ((1, None), (2, 7), (3, 8), (4, 9)):
         args, kw = _graph_inputs("cuda", *shape, seed=seed, preset=seed % 2,
                                  codec_seed=codec_seed, fused=fused)
         want = _eager(front, args, kw)
         got = TG.encode_lfg_packed(front, *args, **kw)
         assert got.dtype == want.dtype and torch.equal(got, want)
     st = TG.graph_stats()["cuda:0"]
-    assert (st["captures"], st["replays"], st["live"]) == (1, 3, 1)
+    assert (st["eager"], st["captures"], st["replays"], st["live"]) == (
+        1, 1, 3, 1)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["torch", "fused"])
@@ -641,11 +643,13 @@ def test_graph_wide_geometry_equals_eager(graph_cache, fused):
     """The wide residue geometry is a key of its own, equal to eager."""
     front = TF.FrontEnd.from_tables().to("cuda")
     for wide in (False, True):
-        args, kw = _graph_inputs("cuda", "uint8", False, 2048, 2048, 8, 8,
-                                 0, seed=4, wide=wide, fused=fused)
-        assert torch.equal(TG.encode_lfg_packed(front, *args, **kw),
-                           _eager(front, args, kw))
-    assert TG.graph_stats()["cuda:0"]["captures"] == 2
+        for seed in (4, 5, 6):
+            args, kw = _graph_inputs("cuda", "uint8", False, 2048, 2048, 8,
+                                     8, 0, seed=seed, wide=wide, fused=fused)
+            assert torch.equal(TG.encode_lfg_packed(front, *args, **kw),
+                               _eager(front, args, kw))
+    st = TG.graph_stats()["cuda:0"]
+    assert (st["captures"], st["replays"], st["live"]) == (2, 4, 2)
 
 
 @pytest.mark.parametrize("kind,linear,h,w,tcy,tcx,seg", GRAPH_SHAPES)
@@ -672,35 +676,66 @@ def test_graph_body_never_waits_on_the_device(cuda, kind, linear, h, w,
 
 
 def test_graph_interleaved_keys_and_payloads_in_flight(graph_cache):
-    """Two keys replayed in turns, three payloads of one key in flight
-    before any is read: each equals its eager payload."""
+    """Two keys in turns, every payload enqueued before any is read (of
+    each key one eager, then four from its graph): each equals its eager
+    payload."""
     front = TF.FrontEnd.from_tables().to("cuda")
     shapes = [("uint8", False, 2048, 1792, 8, 8, 0),
               ("uint8", False, 112, 256, 1, 1, 0)]
     cases = [_graph_inputs("cuda", *shapes[i % 2], seed=i, preset=i % 2,
-                           codec_seed=i, fused=i % 3 == 0)
-             for i in range(6)]
+                           codec_seed=i, fused=i % 2 == 0)
+             for i in range(10)]
     got = [TG.encode_lfg_packed(front, *args, **kw) for args, kw in cases]
     for (args, kw), g in zip(cases, got):
         assert torch.equal(g, _eager(front, args, kw))
-    assert TG.graph_stats()["cuda:0"]["replays"] == 6
+    st = TG.graph_stats()["cuda:0"]
+    assert (st["eager"], st["captures"], st["replays"]) == (2, 2, 8)
 
 
 def test_graph_replay_counts_captured_launches(graph_cache):
-    """A capture (warm-up included) leaves the counters as they were and
-    every replay adds the captured launches: one of each kernel for the
-    fused front, none of frontend_tokens for the default front."""
+    """Each dispatch of a key raises the counters by its launches, be it
+    eager (the first), the capture and its replay (the second) or a
+    replay: one of each kernel for the fused front, none of
+    frontend_tokens for the default front."""
     front = TF.FrontEnd.from_tables().to("cuda")
     wrappers = (TT.transport_prep, TB.pack_chunks, TFE.frontend_tokens,
                 TFE.frontend_groups)
     for fused in (False, True):
         args, kw = _graph_inputs("cuda", "uint8", False, 112, 256, 1, 1, 0,
                                  fused=fused)
-        for _ in range(3):
+        for _ in range(4):
             before = [f.launches for f in wrappers]
             TG.encode_lfg_packed(front, *args, **kw)
             rose = [f.launches - b for f, b in zip(wrappers, before)]
             assert rose == [1, 1, int(fused), 0], (fused, rose)
+
+
+def test_graph_replays_launch_the_counted_kernels(graph_cache):
+    """What the counters add for a replay is what the card runs: a
+    torch.profiler trace of three replays of a graph captured before the
+    trace began sees each kernel launched as often as the counters
+    rose."""
+    from torch.profiler import ProfilerActivity, profile
+
+    front = TF.FrontEnd.from_tables().to("cuda")
+    args, kw = _graph_inputs("cuda", "uint8", False, 112, 256, 1, 1, 0,
+                             fused=True)
+    for _ in range(2):              # eager, then the capture
+        TG.encode_lfg_packed(front, *args, **kw)
+    torch.cuda.synchronize()
+    wrappers = (TT.transport_prep, TB.pack_chunks, TFE.frontend_tokens)
+    before = [f.launches for f in wrappers]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            TG.encode_lfg_packed(front, *args, **kw)
+        torch.cuda.synchronize()
+    rose = [f.launches - b for f, b in zip(wrappers, before)]
+    seen = [sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and name in e.name)
+            for name in ("transport_prep_kernel",
+                         "chunk_pack_streams_kernel", "frontend_kernel")]
+    assert rose == [3, 3, 3] and seen == rose, (rose, seen)
 
 
 def test_graph_replays_keep_device_memory_steady(graph_cache):
@@ -711,7 +746,8 @@ def test_graph_replays_keep_device_memory_steady(graph_cache):
     front = TF.FrontEnd.from_tables().to("cuda")
     args, kw = _graph_inputs("cuda", "uint8", False, 2048, 2048, 8, 8, 0,
                              fused=True)
-    TG.encode_lfg_packed(front, *args, **kw)
+    for _ in range(2):              # eager, then the capture
+        TG.encode_lfg_packed(front, *args, **kw)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     outs = []
@@ -726,7 +762,9 @@ def test_graph_replays_keep_device_memory_steady(graph_cache):
 
 def test_graph_capture_error_reaches_the_caller(cuda, monkeypatch):
     """An operation that syncs with the host cannot be captured: the
-    encode raises it, and nothing runs the eager pipeline in its place."""
+    key's first dispatch runs it eagerly, its second (the cold codec's
+    bootstrap, or the next encode) raises, and nothing runs the eager
+    pipeline in its place."""
     monkeypatch.setattr(TG, "_CACHE", TG.GraphCache())
     real = TP.pack_payload
 
@@ -739,7 +777,8 @@ def test_graph_capture_error_reaches_the_caller(cuda, monkeypatch):
     img = np.random.default_rng(7).integers(0, 256, (300, 400, 3),
                                             dtype=np.uint8)
     with pytest.raises(RuntimeError):
-        hydrium_tpu_torch.encode_image(img, device="cuda")
+        for _ in range(2):
+            hydrium_tpu_torch.encode_image(img, device="cuda")
     assert TG.graph_stats() == {"cuda:0": {
-        "captures": 0, "replays": 0, "evictions": 0, "live": 0,
-        "graphs": []}}
+        "eager": 1, "captures": 0, "replays": 0, "evictions": 0, "live": 0,
+        "reserved_mib": 0.0, "graphs": []}}

@@ -1,7 +1,8 @@
 """The port's compile-once dispatch (hydrium_tpu_torch/ops/graphs.py) on
-the CPU: its static key, the graph cache's LRU bound, eviction order and
-launch accounting under an injected stub capture, the refusal of a CPU
-tensor; and the packed pipeline's rewrites for capture (the fixed-bin LF
+the CPU: its static key, the graph cache's first eager dispatch and
+capture at the second, its memory budget, eviction order and launch
+accounting under an injected stub capture and eager run, the refusal of
+a CPU tensor; and the packed pipeline's rewrites for capture (the fixed-bin LF
 histogram, the expanded presets and extent mask, the scatter-add
 cluster histogram) against the forms they replace and the JAX
 package.  The graphs themselves run only on a card
@@ -28,6 +29,7 @@ from test_torch_e2e import warm_state  # noqa: F401
 
 WRAPPERS = (TT.transport_prep, TB.pack_chunks, TFE.frontend_tokens,
             TFE.frontend_groups)
+FRONT = TF.FrontEnd.from_tables()
 BASE = dict(buf_h=2048, buf_w=2048, linear_light=False, sample_kind="uint8",
             lf_seg_vb=0, tok_classes=9, wide_residues=False, fused=False)
 
@@ -39,7 +41,7 @@ def _key(lfg, dtype=torch.uint8, device="meta", **kw):
     px = torch.empty((uh, uw, 3), dtype=dtype, device=device)
     args = dict(BASE, buf_h=buf_h, buf_w=buf_w)
     args.update(kw)
-    return TG.packed_key(px, lfg.height, lfg.width, **args)
+    return TG.packed_key(FRONT, px, lfg.height, lfg.width, **args)
 
 
 def _one_frame_lfgs(w, h):
@@ -90,6 +92,7 @@ _VARIANTS = {
     "sample_kind": dict(sample_kind="uint16"),
     "tok_classes": dict(tok_classes=3),
     "device": dict(_device="cpu"),
+    "front": dict(_front="other tables"),
 }
 
 
@@ -100,25 +103,55 @@ def test_key_differs_in_every_static_argument(what):
                      dtype=v.pop("_dtype", torch.uint8),
                      device=v.pop("_device", "meta"))
     h, w = v.pop("_extent", (2048, 2048))
-    assert TG.packed_key(px, h, w, **dict(BASE, **v)) != _key(_LFG)
+    front = FRONT
+    if v.pop("_front", None):
+        tabs = dict(FRONT.named_buffers())
+        front = TF.FrontEnd(**dict(tabs, lf_shift=tabs["lf_shift"] * 2))
+    assert TG.packed_key(front, px, h, w, **dict(BASE, **v)) != _key(_LFG)
+
+
+def test_key_is_shared_by_fronts_with_equal_tables():
+    """Every Encoder makes its own FrontEnd.from_tables(): they share
+    one digest, and so each key's graph."""
+    a, b = TF.FrontEnd.from_tables(), TF.FrontEnd.from_tables()
+    assert a is not b and a.digest == b.digest == FRONT.digest
+    px = torch.empty((2048, 2048, 3), dtype=torch.uint8, device="meta")
+    assert TG.packed_key(a, px, 2048, 2048, **BASE) == TG.packed_key(
+        b, px, 2048, 2048, **BASE)
+
+
+LAUNCHES = (1, 1, 1, 0)
+
+
+def stub_eager(front, pixels, height, width, presets, tok_len, tok_code,
+               **kw):
+    """The eager body for the CPU: it launches once each, as the packed
+    pipeline with the fused front does."""
+    for f, n in zip(WRAPPERS, LAUNCHES):
+        f.launches += n
+    return pixels.sum().reshape(1) + tok_len.sum()
 
 
 class StubGraph:
-    """A capture for the CPU: it moves the launch counters as a warm-up
-    and a capture would (by `rise` each) and records its replays."""
+    """A capture for the CPU: it moves the launch counters as a capture
+    does (once each; with `fail`, part way and then raises) and records
+    its replays.  Its reserved memory is `reserved_mib[height]`, 3 MiB
+    where not given."""
 
-    rise = (2, 2, 2, 0)
-    launches = (1, 1, 1, 0)
+    launches = LAUNCHES
     fail = False
+    reserved_mib: dict = {}
 
     def __init__(self, front, pixels, height, width, presets, tok_len,
-                 tok_code, **kw):
-        for f, n in zip(WRAPPERS, self.rise):
+                 tok_code, *, stream, **kw):
+        assert stream is None           # no side stream on the CPU
+        for f, n in zip(WRAPPERS, self.launches):
             f.launches += n
         if self.fail:
             raise RuntimeError("capture failed")
-        self.key = TG.packed_key(pixels, height, width, **kw)
-        self.capture_s, self.reserved_bytes = 0.25, 3 << 20
+        self.key = TG.packed_key(front, pixels, height, width, **kw)
+        self.capture_s = 0.25
+        self.reserved_bytes = self.reserved_mib.get(height, 3) << 20
         self.replayed, self.closed = [], False
 
     def replay(self, pixels, presets, tok_len, tok_code):
@@ -133,7 +166,7 @@ def _run(cache, height, *, pixels=None, tok_len=None):
     px = torch.zeros((32, 32, 3), dtype=torch.uint8) if pixels is None \
         else pixels
     tl = torch.zeros(640, dtype=torch.int32) if tok_len is None else tok_len
-    return cache.run(None, px, height, 32, torch.zeros(1, dtype=torch.int32),
+    return cache.run(FRONT, px, height, 32, torch.zeros(1, dtype=torch.int32),
                      tl, torch.zeros(640, dtype=torch.int32),
                      **dict(BASE, buf_h=256, buf_w=256))
 
@@ -142,54 +175,97 @@ def _live(cache):
     return [g["key"].split(" ")[0] for g in cache.stats()["cpu"]["graphs"]]
 
 
-def test_cache_evicts_the_least_recently_used_graph():
-    cache = TG.GraphCache(capacity=2, capture=StubGraph)
-    graphs = {}
-    for h in (30, 31):
-        _run(cache, h)
-        graphs[h] = cache._graphs[torch.device("cpu")][
-            next(reversed(cache._graphs[torch.device("cpu")]))]
+def _cache(**kw):
+    return TG.GraphCache(capture=StubGraph, eager=stub_eager, **kw)
+
+
+def _twice(cache, height):
+    """Dispatch a key twice: eagerly, then captured and replayed."""
+    _run(cache, height)
+    _run(cache, height)
+    lru = cache._graphs[torch.device("cpu")]
+    return lru[next(reversed(lru))]
+
+
+def test_cache_runs_a_key_eagerly_first_and_captures_it_second():
+    """A key dispatched once makes no graph; its second dispatch
+    captures and replays, its third replays."""
+    cache = _cache()
+    _run(cache, 30)
+    _run(cache, 31)
+    st = cache.stats()["cpu"]
+    assert (st["eager"], st["captures"], st["replays"], st["live"]) == (
+        2, 0, 0, 0)
+    _run(cache, 30)
+    graph, = cache._graphs[torch.device("cpu")].values()
+    _run(cache, 30)
+    st = cache.stats()["cpu"]
+    assert (st["eager"], st["captures"], st["replays"], st["live"]) == (
+        2, 1, 2, 1)
+    assert len(graph.replayed) == 2
+    assert _live(cache) == ["30x32"]
+
+
+def test_cache_evicts_the_least_recently_used_graph(monkeypatch):
+    """The budget bounds the live graphs' reserved memory: past it the
+    least recently used leave, and the newest stays even alone above
+    it."""
+    monkeypatch.setattr(StubGraph, "reserved_mib",
+                        {30: 4, 31: 4, 29: 4, 28: 20})
+    cache = _cache(budget=10 << 20)
+    graphs = {h: _twice(cache, h) for h in (30, 31)}
     _run(cache, 30)                 # 30 is now the most recently used
-    _run(cache, 29)                 # evicts 31
+    graphs[29] = _twice(cache, 29)  # 12 MiB: evicts 31
     assert graphs[31].closed and not graphs[30].closed
     assert _live(cache) == ["30x32", "29x32"]
-    _run(cache, 31)                 # captured again; evicts 30
+    _twice(cache, 31)               # captured again; evicts 30
     assert graphs[30].closed
     assert _live(cache) == ["29x32", "31x32"]
+    _twice(cache, 28)               # 20 MiB alone: the others leave
+    assert _live(cache) == ["28x32"]
     st = cache.stats()["cpu"]
-    assert {k: st[k] for k in ("captures", "replays", "evictions",
-                               "live")} == {"captures": 4, "replays": 5,
-                                            "evictions": 2, "live": 2}
+    assert {k: st[k] for k in ("captures", "replays", "evictions", "live",
+                               "reserved_mib")} == {
+        "captures": 5, "replays": 6, "evictions": 4, "live": 1,
+        "reserved_mib": 20.0}
 
 
 def test_cache_stats_per_key():
-    cache = TG.GraphCache(capacity=4, capture=StubGraph)
+    cache = _cache()
     assert cache.stats() == {}
-    for h in (30, 30, 30, 31):
+    for h in (30, 30, 30, 31, 31, 32):
         _run(cache, h)
     st = cache.stats()["cpu"]
+    d = FRONT.digest
     assert [(g["key"], g["replays"]) for g in st["graphs"]] == [
-        ("30x32 in 256x256 (upload 32x32 uint8) uint8 classes 9", 3),
-        ("31x32 in 256x256 (upload 32x32 uint8) uint8 classes 9", 1)]
+        (f"30x32 in 256x256 (upload 32x32 uint8) uint8 classes 9 front {d}",
+         2),
+        (f"31x32 in 256x256 (upload 32x32 uint8) uint8 classes 9 front {d}",
+         1)]
     assert all(g["capture_s"] == 0.25 and g["reserved_mib"] == 3.0
                for g in st["graphs"])
+    assert (st["eager"], st["reserved_mib"]) == (3, 6.0)
 
 
 def test_cache_counts_the_captured_launches_on_every_replay():
-    """A capture's own rise of the counters is taken back; each replay,
-    the first included, adds the captured launches."""
-    cache = TG.GraphCache(capture=StubGraph)
+    """The eager first dispatch counts its launches, the capture counts
+    those its own replay makes, and each later replay adds the captured
+    launches: n dispatches, n launches each."""
+    cache = _cache()
     before = [f.launches for f in WRAPPERS]
-    for n in range(1, 4):
+    for n in range(1, 5):
         _run(cache, 30)
         assert [f.launches - b for f, b in zip(WRAPPERS, before)] == [
-            n * d for d in StubGraph.launches]
+            n * d for d in LAUNCHES]
+    assert cache.stats()["cpu"]["replays"] == 3
 
 
 def test_cache_capture_error_reaches_the_caller(monkeypatch):
-    """A failing capture raises to the caller, leaves no graph and no
-    count behind; the next dispatch of the key captures anew."""
-    cache = TG.GraphCache(capture=StubGraph)
+    """A failing capture raises to the caller, leaves no graph and none
+    of its counts behind; the key's next dispatch runs eagerly and the
+    one after captures anew."""
+    cache = _cache()
+    _run(cache, 30)
     before = [f.launches for f in WRAPPERS]
     monkeypatch.setattr(StubGraph, "fail", True)
     with pytest.raises(RuntimeError, match="capture failed"):
@@ -197,32 +273,47 @@ def test_cache_capture_error_reaches_the_caller(monkeypatch):
     assert [f.launches for f in WRAPPERS] == before
     assert cache.stats()["cpu"]["live"] == 0
     monkeypatch.setattr(StubGraph, "fail", False)
-    _run(cache, 30)
+    _twice(cache, 30)
     st = cache.stats()["cpu"]
-    assert (st["captures"], st["replays"], st["live"]) == (1, 1, 1)
+    assert (st["eager"], st["captures"], st["replays"], st["live"]) == (
+        2, 1, 1, 1)
 
 
 def test_cache_replays_with_each_dispatch_inputs():
     """Each replay gets its own dispatch's inputs and returns what the
     graph made of them."""
-    cache = TG.GraphCache(capture=StubGraph)
+    cache = _cache()
     outs = [_run(cache, 30, pixels=torch.full((32, 32, 3), v,
                                               dtype=torch.uint8),
                  tok_len=torch.full((640,), t, dtype=torch.int32))
-            for v, t in ((1, 0), (2, 5))]
-    assert [int(o) for o in outs] == [32 * 32 * 3, 2 * 32 * 32 * 3 + 3200]
+            for v, t in ((1, 0), (2, 5), (3, 1))]
+    assert [int(o) for o in outs] == [3072, 2 * 3072 + 3200, 3 * 3072 + 640]
     graph, = cache._graphs[torch.device("cpu")].values()
-    assert [int(p.sum()) for p, *_ in graph.replayed] == [3072, 6144]
+    assert [int(p.sum()) for p, *_ in graph.replayed] == [6144, 9216]
+
+
+def test_cache_forgets_keys_seen_once_past_its_bound(monkeypatch):
+    """Keys dispatched once are remembered up to SEEN a device: one
+    pushed out runs eagerly again at its next dispatch."""
+    monkeypatch.setattr(TG, "SEEN", 2)
+    cache = _cache()
+    for h in (30, 31, 32, 30):
+        _run(cache, h)
+    st = cache.stats()["cpu"]
+    assert (st["eager"], st["captures"]) == (4, 0)
+    _run(cache, 30)
+    assert cache.stats()["cpu"]["captures"] == 1
 
 
 def test_clear_closes_every_graph():
-    cache = TG.GraphCache(capture=StubGraph)
-    _run(cache, 30)
-    _run(cache, 31)
-    graphs = list(cache._graphs[torch.device("cpu")].values())
+    cache = _cache()
+    graphs = [_twice(cache, 30), _twice(cache, 31)]
+    _run(cache, 32)
     cache.clear()
     assert all(g.closed for g in graphs)
     assert cache.stats()["cpu"]["live"] == 0
+    _run(cache, 32)                 # forgotten: eager again
+    assert cache.stats()["cpu"]["captures"] == 2
 
 
 def test_graph_runner_refuses_a_cpu_tensor():
