@@ -171,6 +171,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import Optional
 
@@ -847,8 +848,10 @@ def check_overlap(img: np.ndarray, digests: dict, data: bytes,
             assert hashlib.sha256(got).hexdigest() == digest, (
                 f"{name}: HYDRIUM_INFLIGHT={window} bytes differ from "
                 "phases 4 and 5")
+            # the caller's own stage "dispatch" carries the same name
+            caller = threading.current_thread().name
             preps = [thread for ev, _t0, _t1, thread in pstats.events
-                     if ev.startswith("dispatch[")]
+                     if ev.startswith("dispatch[") and thread != caller]
             assert len(preps) == pstats.counters.get("lfg_packed", 0), preps
             assert all(t.startswith("hyd-prep") for t in preps), preps
             sec = pstats.stage_seconds

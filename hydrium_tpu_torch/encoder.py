@@ -44,7 +44,10 @@ With device="cpu" the same threads run with plain copies.  An error on
 a worker thread (a checksum mismatch, a failed enqueue) reaches the
 caller from send_tile, send_tile_batch or the call that finalizes.
 Stage "dispatch" times the caller's share of a dispatch, stage
-"prepare" the prep workers' (summed over threads).
+"prepare" the prep workers' (summed over threads).  Every span of a
+dispatch is tagged with its LF group's (or tile unit's) (y, x), on each
+thread that serves it (utils/stats.py): the code tables, the fetch's
+waits and codec fold, the drain's wait, parse and walk, the renders.
 
 The device plane requires the native serialization plane (the packed
 path is where the device kernels are).  Its transport code is one per
@@ -281,13 +284,14 @@ class _TorchDispatch:
     (join_prepare), and an error raised there is raised by that join.
     fused selects the fused front; lf_seg_vb > 0 restarts LF prediction
     every lf_seg_vb varblock rows (stacked tiles are independent
-    frames)."""
+    frames).  tag: the (y, x) its spans carry, the LF group's by
+    default."""
 
     def __init__(self, pixels, sample_fmt: str, linear_light: bool, lfg,
                  preset: int, hf, codec: TokenCodec,
                  front: _front.FrontEnd, device: torch.device,
                  stats: EncodeStats, *, fused: bool = False,
-                 lf_seg_vb: int = 0) -> None:
+                 lf_seg_vb: int = 0, tag: Optional[tuple] = None) -> None:
         h, w = lfg.height, lfg.width
         self.buf_h, self.buf_w, ubuf_h, ubuf_w = buffer_shapes(lfg)
         dtype = torch.from_numpy(np.empty(0, np.asarray(pixels).dtype)).dtype
@@ -299,6 +303,7 @@ class _TorchDispatch:
         self.lfg, self.preset, self.hf = lfg, preset, hf
         self.codec, self.front, self.device = codec, front, device
         self.stats = stats
+        self.tag = (lfg.y, lfg.x) if tag is None else tag
         self.sample_fmt, self.linear_light = sample_fmt, linear_light
         self.fused, self.lf_seg_vb = fused, lf_seg_vb
         self.num_clusters = int(hf.cluster_map.max()) + 1
@@ -316,10 +321,10 @@ class _TorchDispatch:
         current stream of this thread (the one the fetch's events
         order against).  Never submits to the pool: a re-dispatch
         (bootstrap, wide retry) runs on the fetch thread."""
-        tag = f"{self.lfg.y},{self.lfg.x}"
+        tag = self.tag
         stage = self._stage
-        with self.stats.stage("prepare"):
-            with self.stats.event(f"h2d[{tag}]"), _DISPATCH_LOCK, \
+        with self.stats.stage("prepare", tag):
+            with self.stats.event("h2d", tag), _DISPATCH_LOCK, \
                     _current(self.device):
                 self.px = (stage.to(self.device, non_blocking=True)
                            if self.device.type == "cuda" else stage)
@@ -329,7 +334,7 @@ class _TorchDispatch:
                                           device=self.device)
             self.stats.count("h2d_raw_bytes",
                              stage.numel() * stage.element_size())
-            with self.stats.event(f"dispatch[{tag}]"):
+            with self.stats.event("dispatch", tag):
                 self._dispatch()
 
     def join_prepare(self) -> None:
@@ -342,8 +347,14 @@ class _TorchDispatch:
         copy of its aux prefix: the walker must decode with exactly
         the table the device packed with.  The LUT is sliced to this
         frame's class count so the walker's class = cluster %
-        (lut.size/4096) matches the device's."""
-        lens, codes, lut = self.codec.tables()
+        (lut.size/4096) matches the device's.  Counts the dispatch, and
+        the code tables' build where the codec had none built."""
+        self.stats.count("dispatches")
+        build = not self.codec.built
+        with self.stats.stage("codec_tables", self.tag):
+            lens, codes, lut = self.codec.tables()
+        if build:
+            self.stats.count("codec_table_builds")
         self.tok_lut = lut[:self.tok_classes]
         self.lf_lut = lut[LF_CLASS]
         A = packed_aux_len(self.buf_h, self.buf_w)
@@ -380,7 +391,8 @@ class _TorchDispatch:
     def _checked_aux(self) -> np.ndarray:
         """Wait for the aux prefix.  A checksum mismatch raises: a local
         card has no lossy link that a refetch could fix."""
-        aux = self._aux.wait()
+        with self.stats.stage("aux_wait", self.tag):
+            aux = self._aux.wait()
         if not _host.packed_verify(aux, None):
             raise RuntimeError("packed payload aux checksum mismatch")
         return aux
@@ -391,6 +403,7 @@ class _TorchDispatch:
         payload, exactly the stream words it needs; the aux histogram
         goes into the codec.  Returns (aux, words or None)."""
         self.join_prepare()
+        tag = self.tag
         folded = False
         if self.codec.cold:
             # cold-start bootstrap, once per cold codec: the generic
@@ -400,7 +413,9 @@ class _TorchDispatch:
             # streams are copied back
             with _BOOTSTRAP_LOCK:
                 if self.codec.cold:
-                    self.codec.update(self._checked_aux()[8:648])
+                    aux = self._checked_aux()
+                    with self.stats.stage("codec_fold", tag):
+                        self.codec.update(aux[8:648])
                     folded = True
                     if not self.codec.cold:
                         self._dispatch()
@@ -426,24 +441,30 @@ class _TorchDispatch:
                     copy = _HostCopy(span)
             else:
                 copy = _HostCopy(span)
-            words = copy.wait().view(np.uint32)
+            with self.stats.stage("words_wait", tag):
+                words = copy.wait().view(np.uint32)
             self.stats.count("fetched_words", need + 1)
             if not _host.packed_verify(aux, words):
                 raise RuntimeError("packed payload stream checksum mismatch")
         if not folded:
-            self.codec.update(aux[8:648])
+            with self.stats.stage("codec_fold", tag):
+                self.codec.update(aux[8:648])
         self._combined = self._aux = self._stage = None
         return aux, words
 
     def drain(self):
         """Join the fetch, then walk into the HF stream.  Returns
         (lf_q, lf_res) for the LF group section (one of them None)."""
-        aux, words = self.join()
+        tag = self.tag
+        with self.stats.stage("drain_wait", tag):
+            aux, words = self.join()
         if words is not None:
-            parsed = _host._parse_packed(aux, words, self.buf_h, self.buf_w,
-                                         self.lfg, self.lf_lut)
+            with self.stats.stage("parse", tag):
+                parsed = _host._parse_packed(aux, words, self.buf_h,
+                                             self.buf_w, self.lfg,
+                                             self.lf_lut)
             if parsed is not None:
-                with self.stats.stage("walk"):
+                with self.stats.stage("walk", tag):
                     _host._feed_hf_packed(self.hf, parsed, self.lfg,
                                           self.buf_w, self.buf_h,
                                           self.preset, self.tok_lut)
@@ -642,7 +663,7 @@ class Encoder:
         self._tb_flush_pending = False
         self._codec = self._new_codec() if on_device else None
         self.max_inflight = int(os.environ.get("HYDRIUM_INFLIGHT", "3"))
-        self._pending = deque()      # one-frame drain futures, oldest first
+        self._pending = deque()      # one-frame (tag, future), oldest first
         self._front = (_front.FrontEnd.from_tables().to(self.device)
                        if on_device else None)
         self.fused_front = on_device and (default_fused() if fused_front
@@ -796,13 +817,13 @@ class Encoder:
         return _shared_codec()
 
     def _dispatch(self, pixels, fmt: str, lfg, preset: int, hf,
-                  lf_seg_vb: int = 0) -> _TorchDispatch:
+                  lf_seg_vb: int = 0, tag=None) -> _TorchDispatch:
         """Stage `pixels` as one dispatch unit; the prep pool uploads
         them and enqueues its packed pipeline."""
         return _TorchDispatch(
             pixels, fmt, self.metadata.linear_light, lfg, preset, hf,
             self._codec, self._front, self.device, self.stats,
-            fused=self.fused_front, lf_seg_vb=lf_seg_vb)
+            fused=self.fused_front, lf_seg_vb=lf_seg_vb, tag=tag)
 
     def _image_header(self, bw: BitWriter) -> None:
         headers.write_image_header(
@@ -845,8 +866,10 @@ class Encoder:
         """Serialize one tile-frame (header, LF sections, HF sections,
         TOC) from an already-fed HF stream; returns the frame bytes.
         Pure function of its arguments -- safe to run on a worker
-        thread (the per-frame ANS encode releases the GIL in C++)."""
+        thread (the per-frame ANS encode releases the GIL in C++).  Its
+        spans carry the tile's (y, x)."""
         m = self.metadata
+        tag = (lfg.y, lfg.x)
         geo = FrameGeometry(
             image_width=m.width, image_height=m.height, one_frame=False,
             lfg_count_x=1, lf_groups=[lfg], lfg_arrival=[0])
@@ -858,12 +881,12 @@ class Encoder:
                                        self._icc_payload)
         write_frame_header(main, geo, last)
         asm = _FrameAssembler(geo.num_frame_groups > 1)
-        with self.stats.stage("lf_sections"):
+        with self.stats.stage("lf_sections", tag):
             write_lf_global(asm.working)
             asm.end_section()
             write_lf_group(asm.working, lf_q, lf_res)
             asm.end_section()
-        with self.stats.stage("ans_encode"):
+        with self.stats.stage("ans_encode", tag):
             hf.encode_group_sections()
         hf.write_hf_global(asm.working, geo.num_frame_groups)
         asm.end_section()
@@ -880,8 +903,9 @@ class Encoder:
             include_header = not self._wrote_header
         if include_header:
             self._wrote_header = True
-        data = self._render_tiled_frame(lfg, last, lf_q, lf_res, hf,
-                                        include_header)
+        with self.stats.stage("render", (lfg.y, lfg.x)):
+            data = self._render_tiled_frame(lfg, last, lf_q, lf_res, hf,
+                                            include_header)
         self._out.extend(data)
         if last:
             self._finish()
@@ -893,7 +917,7 @@ class Encoder:
                                   m.tile_height, is_last)
         hf = HFStream(1)
         self.stats.pixels += lfg.height * lfg.width
-        with self.stats.stage("pipeline+transfer"):
+        with self.stats.stage("pipeline+transfer", (lfg.y, lfg.x)):
             if self.backend == "numpy":
                 lf_q, lf_res = _lfg_numpy(pixels, fmt, m.linear_light, lfg,
                                           0, hf)
@@ -951,7 +975,7 @@ class Encoder:
                 self._tb_add(self._tb_chunk(run, fmt, k_stack))
                 run = []
             hf = HFStream(1)
-            with self.stats.stage("dispatch"):
+            with self.stats.stage("dispatch", (ty, tx)):
                 handle = self._dispatch(pixels, fmt, lfg, 0, hf)
             handle.start_fetch()
             include_header = not self._wrote_header
@@ -995,11 +1019,13 @@ class Encoder:
         self._wrote_header = True
         geo = LFGroupGeometry(x=0, y=0, width=tw, height=bh,
                               tile_count_x=tw >> 8, tile_count_y=bh >> 8)
-        with self.stats.stage("dispatch"):
+        # the unit's spans carry its first tile's (y, x)
+        tag = (part[0][2], part[0][1])
+        with self.stats.stage("dispatch", tag):
             # HFStream(1) sets the class count (9); the walk is per tile
             handle = self._dispatch(px, fmt, geo, 0, HFStream(1),
-                                    lf_seg_vb=th >> 3)
-        unit = {"kind": "chunk", "px": px, "fmt": fmt,
+                                    lf_seg_vb=th >> 3, tag=tag)
+        unit = {"kind": "chunk", "px": px, "fmt": fmt, "tag": tag,
                 "metas": [(tx, ty, lfg) for _p, tx, ty, lfg in part],
                 "include_header": include_header, "result": None,
                 "futs": None}
@@ -1008,10 +1034,14 @@ class Encoder:
 
     def _tb_fetch_chunk(self, unit, handle: _TorchDispatch, geo) -> None:
         """On the unit's own thread: fetch, parse, submit the renders."""
-        with self.stats.stage("pipeline+transfer"):
+        with self.stats.stage("pipeline+transfer", handle.tag):
             aux, words = handle.join()
-            parsed = (None if words is None else _host._parse_packed(
-                aux, words, geo.height, geo.width, geo, handle.lf_lut))
+            parsed = None
+            if words is not None:
+                with self.stats.stage("parse", handle.tag):
+                    parsed = _host._parse_packed(aux, words, geo.height,
+                                                 geo.width, geo,
+                                                 handle.lf_lut)
         if parsed is None:
             self.stats.count("lfg_fallback")
             return
@@ -1030,15 +1060,16 @@ class Encoder:
             raise RuntimeError("tile sent after the last tile")
         if unit["kind"] == "edge":
             last = self._tile_is_last(unit["tx"], unit["ty"], tw, th, -1)
-            with self.stats.stage("fetch_wait"):
-                unit["handle"].join()
-            with self.stats.stage("pipeline+transfer"):
-                lf_q, lf_res = unit["handle"].drain()
+            handle = unit["handle"]
+            with self.stats.stage("fetch_wait", handle.tag):
+                handle.join()
+            with self.stats.stage("pipeline+transfer", handle.tag):
+                lf_q, lf_res = handle.drain()
             self._emit_tiled_frame(unit["lfg"], last, lf_q, lf_res,
                                    unit["hf"],
                                    include_header=unit["include_header"])
             return
-        with self.stats.stage("fetch_wait"):
+        with self.stats.stage("fetch_wait", unit["tag"]):
             unit["fetch"].result()
         if unit["futs"] is None:
             # the first fallback frame writes the header the unit claimed
@@ -1050,10 +1081,10 @@ class Encoder:
                 self._send_tile_tiled(unit["px"][j * th:(j + 1) * th], tx,
                                       ty, -1, unit["fmt"])
             return
-        for f, last in unit["futs"]:
+        for f, last, tag in unit["futs"]:
             if self._finished:
                 raise RuntimeError("tile sent after the last tile")
-            with self.stats.stage("fetch_wait"):
+            with self.stats.stage("fetch_wait", tag):
                 frame = f.result()
             self._out.extend(frame)
             if last:
@@ -1074,18 +1105,20 @@ class Encoder:
             g0, g1 = j * gpt, (j + 1) * gpt
             lf0 = j * (th >> 3)
             hf = HFStream(1)
-            with self.stats.stage("walk"):
-                # the walker's class modulus is the LUT's row count, which
-                # must equal the dispatch's tok_classes
-                hf.add_lfg_packed(parsed["tok_words"], parsed["res_words"],
-                                  lut, 0, (th >> 8, tw >> 8),
-                                  (th >> 3, tw >> 3),
-                                  parsed["tok_off"][g0:g1],
-                                  parsed["res_off"][g0:g1],
-                                  parsed["gs"][g0:g1])
-            return self._render_tiled_frame(
-                lfg, last, None, parsed["lf_res"][lf0:lf0 + (th >> 3)],
-                hf, include_header)
+            tag = (lfg.y, lfg.x)
+            with self.stats.stage("render", tag):
+                with self.stats.stage("walk", tag):
+                    # the walker's class modulus is the LUT's row count,
+                    # which must equal the dispatch's tok_classes
+                    hf.add_lfg_packed(parsed["tok_words"],
+                                      parsed["res_words"], lut, 0,
+                                      (th >> 8, tw >> 8), (th >> 3, tw >> 3),
+                                      parsed["tok_off"][g0:g1],
+                                      parsed["res_off"][g0:g1],
+                                      parsed["gs"][g0:g1])
+                return self._render_tiled_frame(
+                    lfg, last, None, parsed["lf_res"][lf0:lf0 + (th >> 3)],
+                    hf, include_header)
 
         pool = self._tb_pool
         futs = []
@@ -1093,7 +1126,7 @@ class Encoder:
             last = self._tile_is_last(tx, ty, tw, th, -1)
             futs.append((pool.submit(render, j, lfg, last,
                                      unit["include_header"] and j == 0),
-                         last))
+                         last, (ty, tx)))
         unit["futs"] = futs
 
     def _tb_drain_all(self) -> None:
@@ -1166,21 +1199,22 @@ class Encoder:
         self._sent.add(lfid)
         self._geo.lfg_arrival.append(lfid)
         preset = lfid // self._geo.lfg_per_preset
+        tag = (lfg.y, lfg.x)
         if self.backend == "numpy":
-            with self.stats.stage("pipeline+transfer"):
+            with self.stats.stage("pipeline+transfer", tag):
                 lf_q, lf_res = _lfg_numpy(pixels, fmt,
                                           self.metadata.linear_light, lfg,
                                           preset, self._hf)
-            self._write_lf(lf_q, lf_res)
+            self._write_lf(lf_q, lf_res, tag)
             if self.streaming:
-                with self.stats.stage("ans_encode"):
+                with self.stats.stage("ans_encode", tag):
                     self._hf.finish_lfg(preset)
             return
-        with self.stats.stage("dispatch"):
+        with self.stats.stage("dispatch", tag):
             handle = self._dispatch(pixels, fmt, lfg, preset, self._hf)
         handle.start_fetch()
-        self._pending.append(self._drain_exec.submit(self._drain_work,
-                                                     handle))
+        self._pending.append((tag, self._drain_exec.submit(self._drain_work,
+                                                           handle)))
         while len(self._pending) > self.max_inflight:
             self._drain_one()
 
@@ -1188,23 +1222,23 @@ class Encoder:
         """On the drain worker, in dispatch order: join the fetch, walk
         the payload into the HF stream (or run the unpacked fallback),
         and in streaming mode finish the preset's ANS sections."""
-        with self.stats.stage("pipeline+transfer"):
+        with self.stats.stage("pipeline+transfer", handle.tag):
             lf_q, lf_res = handle.drain()
         if self.streaming:
-            with self.stats.stage("ans_encode"):
+            with self.stats.stage("ans_encode", handle.tag):
                 self._hf.finish_lfg(handle.preset)
         return lf_q, lf_res
 
     def _drain_one(self) -> None:
         """Wait for the oldest LF group in flight (what its threads
         raised is raised here) and write its LF section."""
-        fut = self._pending.popleft()
-        with self.stats.stage("fetch_wait"):
+        tag, fut = self._pending.popleft()
+        with self.stats.stage("fetch_wait", tag):
             lf_q, lf_res = fut.result()
-        self._write_lf(lf_q, lf_res)
+        self._write_lf(lf_q, lf_res, tag)
 
-    def _write_lf(self, lf_q, lf_res) -> None:
-        with self.stats.stage("lf_sections"):
+    def _write_lf(self, lf_q, lf_res, tag) -> None:
+        with self.stats.stage("lf_sections", tag):
             if self.streaming:
                 bw = new_bitwriter()
                 write_lf_group(bw, lf_q, lf_res)

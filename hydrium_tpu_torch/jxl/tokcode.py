@@ -174,6 +174,12 @@ class TokenCodec:
             self._tables = None
             self.cold = False
 
+    @property
+    def built(self) -> bool:
+        """Whether the current code's tables are built: tables() then
+        returns them without building."""
+        return self._tables is not None
+
     def tables(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(lengths, codewords, decode LUTs) of the current code, built
         on the first call after an update."""

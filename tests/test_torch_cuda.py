@@ -782,3 +782,54 @@ def test_graph_capture_error_reaches_the_caller(cuda, monkeypatch):
     assert TG.graph_stats() == {"cuda:0": {
         "eager": 1, "captures": 0, "replays": 0, "evictions": 0, "live": 0,
         "reserved_mib": 0.0, "graphs": []}}
+
+
+def test_spans_mirrored_in_a_device_trace_while_keys_capture(graph_cache,
+                                                            tmp_path):
+    """An encode inside device_trace, with its timeline on, while its
+    dispatch keys are captured for the first time (their second
+    dispatch), then one that replays them: the captures and replays
+    succeed, both files equal the encode made without the profiler,
+    and the Chrome trace holds every tagged span, as often as the
+    timeline, each thread's spans on one row of their own, beside the
+    kernels."""
+    import json
+    from collections import Counter
+
+    from hydrium_tpu_torch.utils.stats import device_trace
+
+    img = np.random.default_rng(4).integers(0, 256, (300, 2100, 3),
+                                            dtype=np.uint8)
+    want = hydrium_tpu_torch.encode_image(img, device="cuda")
+    eager = TG.graph_stats()["cuda:0"]["eager"]
+    stats = EncodeStats()
+    stats.enable_timeline()
+    with device_trace(str(tmp_path)) as path:
+        got = hydrium_tpu_torch.encode_image(img, device="cuda", stats=stats)
+        again = hydrium_tpu_torch.encode_image(img, device="cuda")
+        torch.cuda.synchronize()
+    assert got == want and again == want
+    st = TG.graph_stats()["cuda:0"]
+    assert st["captures"] == eager == st["live"] >= 2
+    assert st["replays"] == 2 * st["captures"]
+    with open(path) as f:
+        trace = json.load(f)["traceEvents"]
+    mine = Counter(e[0] for e in stats.events)
+    spans = [e for e in trace if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation" and e["name"] in mine]
+    assert Counter(e["name"] for e in spans) == mine
+    tid = {}
+    for name, _t0, _t1, thread in stats.events:
+        if mine[name] == 1:
+            t, = [e["tid"] for e in spans if e["name"] == name]
+            tid.setdefault(thread, set()).add(t)
+    rows = [t for ts in tid.values() for t in ts]
+    assert len(rows) == len(set(rows)), tid     # no row holds two threads
+    for tag in ("0,0", "0,1"):
+        row = {n: t for n, t in ((e["name"], e["tid"]) for e in spans)
+               if n.endswith(f"[{tag}]")}
+        assert row["drain_wait[" + tag + "]"] == row["walk[" + tag + "]"] \
+            == row["parse[" + tag + "]"] != row["fetch_wait[" + tag + "]"]
+        assert f"codec_tables[{tag}]" in row and f"aux_wait[{tag}]" in row
+    assert any("transport_prep_kernel" in e.get("name", "") for e in trace
+               if e.get("cat") == "kernel")

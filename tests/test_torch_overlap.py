@@ -242,6 +242,29 @@ def _corrupt_nth(monkeypatch, n):
     monkeypatch.setattr(TP, "pack_payload", corrupt)
 
 
+def _corrupt_lfg(monkeypatch, x):
+    """pack_payload that fails its aux checksum in the dispatches of LF
+    group (0, x), whichever order the two prep workers enqueue in."""
+    real_pack, real_dispatch = TP.pack_payload, TE._TorchDispatch._dispatch
+    local = threading.local()
+
+    def dispatch(self):
+        local.x = self.lfg.x
+        try:
+            return real_dispatch(self)
+        finally:
+            local.x = None
+
+    def corrupt(*a, **k):
+        out = real_pack(*a, **k)
+        if getattr(local, "x", None) == x:
+            out[9] += 1               # an aux histogram word
+        return out
+
+    monkeypatch.setattr(TE._TorchDispatch, "_dispatch", dispatch)
+    monkeypatch.setattr(TP, "pack_payload", corrupt)
+
+
 @pytest.mark.parametrize("inflight", ["0", "3"])
 def test_worker_error_reaches_the_caller_one_frame(monkeypatch, wide_image,
                                                    inflight):
@@ -250,7 +273,7 @@ def test_worker_error_reaches_the_caller_one_frame(monkeypatch, wide_image,
     the send_tile that drains that group, or from the one that
     finalizes."""
     monkeypatch.setenv("HYDRIUM_INFLIGHT", inflight)
-    _corrupt_nth(monkeypatch, 1)
+    _corrupt_lfg(monkeypatch, 1)
     h, w = WIDE
     enc = Encoder(ImageMetadata(width=w, height=h), device="cpu")
     raised_at = None

@@ -112,7 +112,7 @@ def test_send_tile_returns_while_its_dispatch_is_held(
         returned_while_held = not gate.release.is_set()
         strip[:] = 0
         assert gate.entered.wait(HOLD_S)
-        assert not enc._pending[0].done()
+        assert not enc._pending[0][1].done()
     finally:
         gate.release.set()
     assert returned_while_held
@@ -136,7 +136,8 @@ def test_caller_reuses_its_strips_while_the_workers_are_held(
             enc.send_tile(strip, tx, 0)
             strip[:] = 0
         assert gate.entered.wait(HOLD_S)
-        held = len(enc._pending), sum(f.done() for f in enc._pending)
+        held = (len(enc._pending),
+                sum(f.done() for _tag, f in enc._pending))
     finally:
         gate.release.set()
     assert held == (4, 0)
@@ -160,8 +161,11 @@ def test_every_dispatch_is_enqueued_on_a_prep_worker(jax_front, monkeypatch,
     want = jax_encode_image(img, 0, backend="jax")
     assert H.encode_image(img, 0, device="cpu", stats=stats) == want
     assert len(gate.threads) == 5 + 5 and gate.on_prep()
+    # the caller's own stage "dispatch" carries the same name, on its
+    # own thread
+    caller = threading.current_thread().name
     spans = [(name, thread) for name, _t0, _t1, thread in stats.events
-             if name.startswith(("h2d[", "dispatch["))]
+             if name.startswith(("h2d[", "dispatch[")) and thread != caller]
     assert len(spans) == 2 * 10
     assert all(t.startswith("hyd-prep") for _n, t in spans)
     assert {"dispatch", "prepare"} <= set(stats.stage_seconds)
