@@ -2,7 +2,8 @@
 // (serializer.cc beside it), built with it under ASAN/UBSAN by
 // tests/test_torch_native_sanitized.py.  Exercises every hot path with
 // randomized streams: LZ77 tokenization, prefix encode (simple + complex
-// codes, nested cluster maps), the packed-stream context walker, ANS
+// codes, nested cluster maps), the packed-stream context walker (a
+// multi-group grid at 1 and 3 threads, and the counts it refuses), ANS
 // table build and backwards emission (single- and multi-threaded), the
 // LF residual decoder, and the PNG row defilter against the PNG
 // specification's filter definitions.
@@ -11,6 +12,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <algorithm>
 #include <vector>
 
 extern "C" {
@@ -40,6 +42,9 @@ int hyd_hf_prepare(HydHF*);
 int hyd_hf_encode_all(HydHF*, int, HydWriter**, int);
 int hyd_hf_write_header(HydHF*, const uint8_t*, long, HydWriter*);
 void hyd_hf_force_las(HydHF*, int);
+long hyd_hf_num_groups(HydHF*);
+int hyd_hf_las(HydHF*);
+long hyd_hf_frequencies(HydHF*, long, uint32_t*, long);
 long hyd_lf_decode(const uint32_t*, const uint16_t*, long, long, uint32_t*);
 int hyd_png_unfilter(uint8_t*, const uint8_t*, long, int, int);
 }
@@ -82,7 +87,7 @@ static std::vector<uint8_t> hf_map() {
   return cm;
 }
 
-static void test_hf_padded_and_packed() {
+static void test_hf_padded() {
   auto cm = hf_map();
   const int blocks = 1024;
   std::vector<uint16_t> tokens(blocks * 3 * 64);
@@ -123,29 +128,27 @@ static void test_hf_padded_and_packed() {
   for (auto* w : ws) hyd_writer_free(w);
   hyd_hf_free(h);
   printf("hf padded ok\n");
+}
 
-  // packed walker (format v3): Huffman-coded tokens via a fixed-length
-  // transport code (all symbols 6 bits, canonical LSB-first = reversed
-  // 6-bit symbol) + residue bits; no valid-length sidecar -- the walker
-  // reconstructs symbol counts from the decoded nonzero counts.  The
-  // streams are word-aligned chunked: tokens realign every 64 block-
-  // channels, residues every 32 (ops/pipeline.py format v3).
-  auto rev6 = [](uint32_t v) {
+// Format-v3 packed streams under a fixed-length transport code (all
+// symbols 6 bits, canonical LSB-first = reversed 6-bit symbol) + residue
+// bits; no valid-length sidecar -- the walker reconstructs symbol counts
+// from the decoded nonzero counts.  The streams are word-aligned
+// chunked: tokens realign every 64 block-channels, residues every 32,
+// counting every block position of the 32x32 buffer group
+// (ops/packed.py); each group starts on a word.
+struct PackedStreams {
+  std::vector<uint32_t> tw, rw;
+  uint64_t tcache = 0, rcache = 0;
+  int tbits = 0, rbits = 0;
+
+  static uint32_t rev6(uint32_t v) {
     uint32_t r = 0;
     for (int i = 0; i < 6; i++) r |= ((v >> i) & 1) << (5 - i);
     return r;
-  };
-  // 9 classes, all using the same fixed 6-bit code (12-bit decode LUTs,
-  // format v4: transport codes are <= 12 bits)
-  std::vector<uint16_t> lut(9 * 4096);
-  for (int k = 0; k < 9; k++)
-    for (uint32_t idx = 0; idx < 4096; idx++)
-      lut[k * 4096 + idx] = (uint16_t)(rev6(idx & 63) | (6 << 8));
-  std::vector<uint32_t> tw, rw;
-  uint64_t tcache = 0, rcache = 0;
-  int tbits = 0, rbitsn = 0;
-  auto put = [](std::vector<uint32_t>& out, uint64_t& cache, int& nbits,
-                uint32_t v, int n) {
+  }
+  static void put(std::vector<uint32_t>& out, uint64_t& cache, int& nbits,
+                  uint32_t v, int n) {
     cache |= (uint64_t)v << nbits;
     nbits += n;
     while (nbits >= 32) {
@@ -153,51 +156,163 @@ static void test_hf_padded_and_packed() {
       cache >>= 32;
       nbits -= 32;
     }
-  };
-  int64_t total_syms = 0;
-  for (int b = 0; b < blocks * 3; b++) {
-    // format v3 chunk alignment (pad-to-word on chunk entry)
-    if (b % 64 == 0 && tbits) put(tw, tcache, tbits, 0, 32 - tbits);
-    if (b % 32 == 0 && rbitsn) put(rw, rcache, rbitsn, 0, 32 - rbitsn);
-    int nz = rnd() % 15;
-    uint32_t count = nz;
-    uint32_t ctok = count < 16 ? count : 16 + ((31 - __builtin_clz(count)) - 1 - 3) * 2 + ((count >> ((31 - __builtin_clz(count)) - 1)) & 1);
-    int crb = ctok < 16 ? 0 : (int)((ctok - 16) >> 1) + 3;
-    put(tw, tcache, tbits, rev6(ctok), 6);
-    if (crb) put(rw, rcache, rbitsn, count & ((1u << crb) - 1), crb);
-    total_syms++;
-    // coefficients: emit nz nonzero tokens then stop
-    for (int k = 0; k < nz; k++) {
-      uint32_t tok = 2 + rnd() % 10;
-      put(tw, tcache, tbits, rev6(tok), 6);
-      total_syms++;
+  }
+  void align_tok() { if (tbits) put(tw, tcache, tbits, 0, 32 - tbits); }
+  void align_res() { if (rbits) put(rw, rcache, rbits, 0, 32 - rbits); }
+  // a hybrid-uint value: its token under the 6-bit code, then its
+  // residue bits (tokens >= 16 carry ((tok - 16) >> 1) + 3 of them)
+  void value(uint32_t v) {
+    if (v < 16) {
+      put(tw, tcache, tbits, rev6(v), 6);
+      return;
     }
+    int rb = (31 - __builtin_clz(v)) - 1;
+    uint32_t tok = 16 + (((uint32_t)(rb - 3) << 1) | ((v >> rb) & 1));
+    put(tw, tcache, tbits, rev6(tok), 6);
+    put(rw, rcache, rbits, v & ((1u << rb) - 1), rb);
   }
-  put(tw, tcache, tbits, 0, 31);  // flush
-  put(rw, rcache, rbitsn, 0, 31);
-  tw.push_back(0); rw.push_back(0);
-  tw.push_back(0); rw.push_back(0);
-  HydHF* h2 = hyd_hf_new(9);
-  hyd_hf_force_las(h2, 8);
-  int64_t toff[1] = {0}, roff[1] = {0}, scount[1] = {total_syms};
-  if (hyd_hf_add_lfg_packed(h2, tw.data(), rw.data(), lut.data(), 9,
-                            cm.data(), 0, 1, 1, 32, 32, toff, roff, scount,
-                            2) != 0) {
-    fprintf(stderr, "packed walk failed\n");
-    exit(1);
+  // one buffer group of true extent gbh x gbw blocks, its nonzero
+  // coefficients in [2, 2 + span); returns its symbol count and sets
+  // its streams' bit offsets
+  int64_t group(int gbh, int gbw, uint32_t span, int64_t* toff,
+                int64_t* roff) {
+    align_tok();
+    align_res();
+    *toff = (int64_t)tw.size() * 32;
+    *roff = (int64_t)rw.size() * 32;
+    int64_t syms = 0;
+    long tch = 0, rch = 0;
+    for (int by = 0; by < gbh; by++)
+      for (int bx = 0; bx < gbw; bx++)
+        for (int c = 0; c < 3; c++) {
+          long bc = ((long)by * 32 + bx) * 3 + c;
+          if ((bc >> 6) != tch) align_tok(), tch = bc >> 6;
+          if ((bc >> 5) != rch) align_res(), rch = bc >> 5;
+          // the nonzero count, then as many nonzero coefficients
+          uint32_t nz = rnd() % 4 ? rnd() % 15 : rnd() % 64;
+          value(nz);
+          for (uint32_t k = 0; k < nz; k++) value(2 + rnd() % span);
+          syms += 1 + nz;
+        }
+    return syms;
   }
-  if (hyd_hf_prepare(h2) != 0) {
+  void finish() {  // the walker may peek one word past the end
+    put(tw, tcache, tbits, 0, 31);
+    put(rw, rcache, rbits, 0, 31);
+    tw.push_back(0); rw.push_back(0);
+    tw.push_back(0); rw.push_back(0);
+  }
+};
+
+static std::vector<uint8_t> section_bytes(HydWriter* w) {
+  std::vector<uint8_t> out(hyd_writer_bit_size(w) / 8 + 8);
+  uint32_t tail = 0;
+  int bits = 0;
+  long n = hyd_writer_copy(w, out.data(), (long)out.size(), &tail, &bits);
+  out.resize(n);
+  for (int k = 0; k < 4; k++) out.push_back((uint8_t)(tail >> (8 * k)));
+  out.push_back((uint8_t)bits);
+  return out;
+}
+
+// las, every cluster's frequencies and every section's bytes of a
+// HydHF, prepared here, for comparing two walks of the same streams
+static std::vector<uint8_t> hf_result(HydHF* h, long n_clusters,
+                                      long n_sections) {
+  if (hyd_hf_prepare(h) != 0) {
     fprintf(stderr, "packed prepare failed\n");
     exit(1);
   }
-  HydWriter* w2 = hyd_writer_new();
-  HydWriter* warr[1] = {w2};
-  if (hyd_hf_encode_all(h2, 0, warr, 2) != 0) {
+  std::vector<uint8_t> out{(uint8_t)hyd_hf_las(h)};
+  for (long c = 0; c < n_clusters; c++) {
+    uint32_t f[512];
+    long a = hyd_hf_frequencies(h, c, f, 512);
+    out.insert(out.end(), (uint8_t*)f, (uint8_t*)(f + a));
+    out.push_back((uint8_t)a);
+  }
+  std::vector<HydWriter*> ws(n_sections);
+  for (auto& w : ws) w = hyd_writer_new();
+  if (hyd_hf_num_groups(h) != n_sections ||
+      hyd_hf_encode_all(h, 0, ws.data(), 2) != 0) {
     fprintf(stderr, "packed encode failed\n");
     exit(1);
   }
-  hyd_writer_free(w2);
-  hyd_hf_free(h2);
+  for (auto* w : ws) {
+    auto b = section_bytes(w);
+    out.insert(out.end(), b.begin(), b.end());
+    hyd_writer_free(w);
+  }
+  return out;
+}
+
+// The packed walker over a 2x3 buffer grid: 2x2 groups with a nonzero
+// extent (cut to 16 block columns on the right, 8 block rows at the
+// bottom) and a phantom column (a phantom group comes with its whole
+// row or column).  Walked at 1 and 3 threads, the results must be the
+// same; at 3 threads the largest tokens are in the group of the third
+// thread, so its alphabet sizes have to be merged.  A wrong symbol
+// count, or a phantom group with symbols, must fail the call and leave
+// the HydHF as it was.
+static void test_hf_packed() {
+  auto cm = hf_map();
+  std::vector<uint16_t> lut(9 * 4096);  // 9 classes, one 6-bit code
+  for (int k = 0; k < 9; k++)
+    for (uint32_t idx = 0; idx < 4096; idx++)
+      lut[k * 4096 + idx] =
+          (uint16_t)(PackedStreams::rev6(idx & 63) | (6 << 8));
+  const long gcy = 2, gcx = 3, vh = 40, vw = 48;
+  PackedStreams ps;
+  int64_t toff[6] = {}, roff[6] = {}, scount[6] = {};
+  const uint32_t span[6] = {8, 16, 0, 256, 32, 0};
+  for (long g = 0; g < gcy * gcx; g++) {
+    long gbh = std::min(32l, vh - g / gcx * 32);
+    long gbw = std::min(32l, vw - g % gcx * 32);
+    if (gbh > 0 && gbw > 0)
+      scount[g] =
+          ps.group((int)gbh, (int)gbw, span[g], &toff[g], &roff[g]);
+  }
+  ps.finish();
+  auto walk = [&](HydHF* h, const int64_t* counts, int threads) {
+    return hyd_hf_add_lfg_packed(h, ps.tw.data(), ps.rw.data(), lut.data(),
+                                 9, cm.data(), 0, gcy, gcx, vh, vw, toff,
+                                 roff, counts, threads);
+  };
+  auto fresh = [] {
+    HydHF* h = hyd_hf_new(9);
+    hyd_hf_force_las(h, 8);
+    return h;
+  };
+  HydHF* h1 = fresh();
+  HydHF* h3 = fresh();
+  if (walk(h1, scount, 1) != 0 || walk(h3, scount, 3) != 0) {
+    fprintf(stderr, "packed walk failed\n");
+    exit(1);
+  }
+  auto want = hf_result(h1, 9, 4);
+  if (hf_result(h3, 9, 4) != want) {
+    fprintf(stderr, "packed walk: 3 threads differ from 1\n");
+    exit(1);
+  }
+  for (int b = 0; b < 2; b++) {
+    int64_t bad[6];
+    memcpy(bad, scount, sizeof bad);
+    if (b == 0)
+      bad[4] += 1;  // a real group: its walk ends short of the count
+    else
+      bad[5] = 3;   // a phantom group
+    HydHF* h = fresh();
+    if (walk(h, bad, 3) != -1) {
+      fprintf(stderr, "packed walk: bad counts (%d) not refused\n", b);
+      exit(1);
+    }
+    if (walk(h, scount, 3) != 0 || hf_result(h, 9, 4) != want) {
+      fprintf(stderr, "packed walk after a refusal (%d) differs\n", b);
+      exit(1);
+    }
+    hyd_hf_free(h);
+  }
+  hyd_hf_free(h1);
+  hyd_hf_free(h3);
   printf("hf packed ok\n");
 }
 
@@ -375,7 +490,8 @@ static void test_png_unfilter() {
 }
 int main() {
   test_prefix_streams();
-  test_hf_padded_and_packed();
+  test_hf_padded();
+  test_hf_packed();
   test_lf_decode();
   test_png_unfilter();
   printf("selftest passed\n");

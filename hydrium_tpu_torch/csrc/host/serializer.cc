@@ -21,6 +21,7 @@
 #include <string>
 #include <atomic>
 #include <thread>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -101,6 +102,29 @@ struct Sym {
   uint32_t residue;
   uint8_t residue_bits;
   uint8_t cluster;
+};
+
+// resize() with this allocator leaves new elements default-initialised:
+// for the trivial Sym, not written at all.  The packed walk sizes the
+// symbol array up front and its threads write (and first touch) their
+// own ranges, instead of the caller zero-filling the whole array.
+template <class T>
+struct DefaultInitAllocator : std::allocator<T> {
+  template <class U>
+  struct rebind {
+    using other = DefaultInitAllocator<U>;
+  };
+  DefaultInitAllocator() = default;
+  template <class U>
+  DefaultInitAllocator(const DefaultInitAllocator<U>&) noexcept {}
+  template <class U>
+  void construct(U* p) {
+    ::new (static_cast<void*>(p)) U;
+  }
+  template <class U, class... Args>
+  void construct(U* p, Args&&... args) {
+    ::new (static_cast<void*>(p)) U(std::forward<Args>(args)...);
+  }
 };
 
 void hybridize(uint32_t symbol, const HybridConfig& cfg, Sym* out) {
@@ -850,7 +874,7 @@ int hyd_stream_prefix_finalize(HydStream* s, HydWriter* w) {
 // appended in emission order into an internal symbol array.
 
 struct HydHF {
-  std::vector<Sym> syms;
+  std::vector<Sym, DefaultInitAllocator<Sym>> syms;
   std::vector<uint32_t> alphabet_sizes;
   uint32_t max_alphabet_size = 0;
   size_t num_clusters;
@@ -923,18 +947,24 @@ struct BitReader {
 // ALL block positions of the 32x32 buffer group (including those
 // beyond gbh/gbw, which emitted 0 bits).  Chunks never straddle a
 // group, so per-group offsets stay word-aligned.
-// Returns symbols written, or SIZE_MAX on a corrupt/overflowing stream.
+// The alphabet sizes are counted in locals and merged into
+// alphabet_sizes[0, num_clusters) once, at the end: stores through the
+// caller's pointers on every symbol would share cache lines between
+// threads, and may alias the Sym stores.
+// Returns symbols written, or SIZE_MAX on a corrupt/overflowing stream
+// or a cluster outside [0, num_clusters).
 static size_t walk_group_packed(const uint32_t* token_words, long tok_bit_off,
                          const uint32_t* residue_words, long res_bit_off,
                          const uint16_t* lut, int tok_classes,
                          const uint8_t* cmap,
                          int gbh, int gbw, Sym* out, size_t out_cap,
-                         uint32_t* alphabet_sizes, uint32_t* max_alphabet) {
+                         uint32_t* alphabet_sizes, size_t num_clusters) {
   BitReader tr{token_words, (size_t)tok_bit_off};
   BitReader rr{residue_words, (size_t)res_bit_off};
   Sym* dst = out;
   Sym* end = out + out_cap;
   uint8_t counts[32][32][3];
+  uint32_t alpha[256] = {};  // per cluster: the largest token + 1
   long tch = 0, rch = 0;  // current token/residue chunk index
   for (int by = 0; by < gbh; by++) {
     for (int bx = 0; bx < 32; bx++) {
@@ -984,9 +1014,7 @@ static size_t walk_group_packed(const uint32_t* token_words, long tok_bit_off,
         s.residue_bits = rb;
         s.cluster = cluster;
         *dst++ = s;
-        uint32_t a = tok + 1;
-        *max_alphabet = std::max(*max_alphabet, a);
-        alphabet_sizes[s.cluster] = std::max(alphabet_sizes[s.cluster], a);
+        alpha[cluster] = std::max(alpha[cluster], tok + 1);
 
         uint32_t remaining = count;
         int prev = count <= 4;
@@ -1008,9 +1036,7 @@ static size_t walk_group_packed(const uint32_t* token_words, long tok_bit_off,
           s2.residue_bits = rb;
           s2.cluster = cl2;
           *dst++ = s2;
-          a = tok + 1;
-          *max_alphabet = std::max(*max_alphabet, a);
-          alphabet_sizes[s2.cluster] = std::max(alphabet_sizes[s2.cluster], a);
+          alpha[cl2] = std::max(alpha[cl2], tok + 1);
           if (tok) {
             prev = 1;
             remaining--;
@@ -1022,18 +1048,14 @@ static size_t walk_group_packed(const uint32_t* token_words, long tok_bit_off,
       }
     }
   }
+  size_t n = std::min<size_t>(num_clusters, 256);
+  for (size_t c = n; c < 256; c++)
+    if (alpha[c]) return SIZE_MAX;  // the cluster map names no such cluster
+  for (size_t c = 0; c < n; c++)
+    alphabet_sizes[c] = std::max(alphabet_sizes[c], alpha[c]);
   return dst - out;
 }
 
-// Walk a whole LF group's worth of groups in parallel: per-group bit
-// offsets and symbol counts come from the device (aux payload), so each
-// thread writes a disjoint range of the shared symbol array.  The
-// buffer grid is gcy x gcx groups; vh/vw give the true varblock extent
-// of the LF group, from which each buffer group's gbh/gbw (and whether
-// it exists at all) follow.  Phantom groups (entirely beyond the
-// extent) produce no HF section.  Returns 0, or -1 when any group's
-// walked symbol count disagrees with the device's count (the caller
-// must then discard this HydHF).
 // Decode the format-v4 LF residual stream: lf_n bit-contiguous fields,
 // each a transport-Huffman hybrid-uint token (class-9 LUT, 4096
 // entries) followed by its raw residue bits.  out[i] receives the
@@ -1067,6 +1089,16 @@ long hyd_lf_decode(const uint32_t* words, const uint16_t* lut, long lf_n,
   return (long)br.bitpos;
 }
 
+// Walk a whole LF group's worth of groups in parallel: per-group bit
+// offsets and symbol counts come from the device (aux payload), so each
+// thread writes a disjoint range of the shared symbol array.  The
+// buffer grid is gcy x gcx groups; vh/vw give the true varblock extent
+// of the LF group, from which each buffer group's gbh/gbw (and whether
+// it exists at all) follow.  Phantom groups (entirely beyond the
+// extent) produce no HF section.  At most n_threads threads run, and
+// no more than there are groups to walk.  Returns 0, or -1 when any
+// group's walked symbol count disagrees with the device's count; the
+// symbol array is then as it was before the call.
 int hyd_hf_add_lfg_packed(HydHF* h, const uint32_t* token_words,
                           const uint32_t* residue_words,
                           const uint16_t* tok_lut,  // [tok_classes, 4096]
@@ -1079,34 +1111,37 @@ int hyd_hf_add_lfg_packed(HydHF* h, const uint32_t* token_words,
   const uint8_t* cmap = cluster_map + (size_t)1485 * preset;
   long n_groups = gcy * gcx;
   std::vector<size_t> offsets(n_groups + 1, 0);
-  for (long g = 0; g < n_groups; g++)
+  std::vector<long> real;  // the groups with a nonzero extent
+  std::vector<std::pair<int, int>> ext(n_groups);
+  for (long g = 0; g < n_groups; g++) {
+    long gy = g / gcx, gx = g % gcx;
+    int gbh = (int)std::max(0l, std::min(32l, vh - gy * 32));
+    int gbw = (int)std::max(0l, std::min(32l, vw - gx * 32));
+    ext[g] = {gbh, gbw};
+    if (sym_counts[g] < 0) return -1;
+    if (gbh && gbw)
+      real.push_back(g);
+    else if (sym_counts[g])
+      return -1;  // a phantom group emitted symbols
     offsets[g + 1] = offsets[g] + (size_t)sym_counts[g];
+  }
   size_t base = h->syms.size();
+  // default-initialised: each worker writes its groups' ranges, and a
+  // group that does not write exactly sym_counts[g] fails the call
   h->syms.resize(base + offsets[n_groups]);
-  if (n_threads < 1) n_threads = 1;
+  long n_real = (long)real.size();
+  n_threads = (int)std::max(1l, std::min((long)n_threads, n_real));
   std::vector<std::vector<uint32_t>> alpha(
       n_threads, std::vector<uint32_t>(h->num_clusters, 0));
-  std::vector<uint32_t> maxa(n_threads, 0);
   std::vector<int> errs(n_threads, 0);
-  auto extent = [&](long g, int* gbh, int* gbw) {
-    long gy = g / gcx, gx = g % gcx;
-    long bh = vh - gy * 32, bw = vw - gx * 32;
-    *gbh = (int)std::max(0l, std::min(32l, bh));
-    *gbw = (int)std::max(0l, std::min(32l, bw));
-  };
   auto worker = [&](int t) {
-    for (long g = t; g < n_groups; g += n_threads) {
-      int gbh, gbw;
-      extent(g, &gbh, &gbw);
-      if (!gbh || !gbw) {
-        if (sym_counts[g]) errs[t] = 1;
-        continue;
-      }
+    for (long i = t; i < n_real; i += n_threads) {
+      long g = real[i];
       size_t wrote = walk_group_packed(
           token_words, tok_bit_offs[g], residue_words, res_bit_offs[g],
-          tok_lut, tok_classes, cmap, gbh, gbw,
-          h->syms.data() + base + offsets[g],
-          (size_t)sym_counts[g], alpha[t].data(), &maxa[t]);
+          tok_lut, tok_classes, cmap, ext[g].first, ext[g].second,
+          h->syms.data() + base + offsets[g], (size_t)sym_counts[g],
+          alpha[t].data(), h->num_clusters);
       if (wrote != (size_t)sym_counts[g]) errs[t] = 1;
     }
   };
@@ -1116,20 +1151,20 @@ int hyd_hf_add_lfg_packed(HydHF* h, const uint32_t* token_words,
   for (auto& th : threads) th.join();
   for (int t = 0; t < n_threads; t++) {
     if (errs[t]) {
-      // roll the symbol array back so the HydHF stays usable: callers
-      // (multi-host with_retry) may retry the whole LF group after a
-      // transient corrupt transfer
+      // roll the symbol array back, before any alphabet size is merged,
+      // so the HydHF stays usable: callers (multi-host with_retry) may
+      // retry the whole LF group after a transient corrupt transfer
       h->syms.resize(base);
       return -1;
     }
-    h->max_alphabet_size = std::max(h->max_alphabet_size, maxa[t]);
-    for (size_t c = 0; c < h->num_clusters; c++)
-      h->alphabet_sizes[c] = std::max(h->alphabet_sizes[c], alpha[t][c]);
   }
-  for (long g = 0; g < n_groups; g++) {
-    int gbh, gbw;
-    extent(g, &gbh, &gbw);
-    if (!gbh || !gbw) continue;  // phantom buffer group: no HF section
+  for (int t = 0; t < n_threads; t++) {
+    for (size_t c = 0; c < h->num_clusters; c++) {
+      h->alphabet_sizes[c] = std::max(h->alphabet_sizes[c], alpha[t][c]);
+      h->max_alphabet_size = std::max(h->max_alphabet_size, alpha[t][c]);
+    }
+  }
+  for (long g : real) {  // a phantom buffer group has no HF section
     h->barriers.push_back((size_t)sym_counts[g]);
     h->presets.push_back(preset);
   }

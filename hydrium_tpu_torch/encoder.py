@@ -469,6 +469,7 @@ class _TorchDispatch:
                                           self.buf_w, self.buf_h,
                                           self.preset, self.tok_lut)
                 self.stats.count("lfg_packed")
+                self.stats.count("walk_symbols", int(parsed["gs"].sum()))
                 return None, parsed["lf_res"]
         self.stats.count("lfg_fallback")
         return self._unpacked()
@@ -1116,6 +1117,8 @@ class Encoder:
                                       parsed["tok_off"][g0:g1],
                                       parsed["res_off"][g0:g1],
                                       parsed["gs"][g0:g1])
+                self.stats.count("walk_symbols",
+                                 int(parsed["gs"][g0:g1].sum()))
                 return self._render_tiled_frame(
                     lfg, last, None, parsed["lf_res"][lf0:lf0 + (th >> 3)],
                     hf, include_header)
