@@ -5,6 +5,7 @@
 // codes, nested cluster maps), the packed-stream context walker (a
 // multi-group grid at 1 and 3 threads, and the counts it refuses), ANS
 // table build and backwards emission (single- and multi-threaded), the
+// ANS encoder's reverse map against the alias-slot scan it replaced, the
 // LF residual decoder, and the PNG row defilter against the PNG
 // specification's filter definitions.
 
@@ -45,6 +46,9 @@ void hyd_hf_force_las(HydHF*, int);
 long hyd_hf_num_groups(HydHF*);
 int hyd_hf_las(HydHF*);
 long hyd_hf_frequencies(HydHF*, long, uint32_t*, long);
+int hyd_ans_reverse_map(const uint32_t*, long, int, uint16_t*);
+uint64_t hyd_ans_recip(uint32_t);
+uint32_t hyd_ans_div(uint32_t, uint32_t);
 long hyd_lf_decode(const uint32_t*, const uint16_t*, long, long, uint32_t*);
 int hyd_png_unfilter(uint8_t*, const uint8_t*, long, int, int);
 }
@@ -316,6 +320,245 @@ static void test_hf_packed() {
   printf("hf packed ok\n");
 }
 
+// The reference for hyd_ans_reverse_map: the alias table of a normalized
+// histogram (entropy.c 184-265) with, per symbol, a list of the slots
+// that may hold it (its own bucket first, then each bucket aliased to
+// it), and the encoder's linear scan of those slots for the bucket and
+// position of (sym, offset): the state's low 12 bits.
+struct ScanSlot {
+  int32_t cutoff, offset, original;
+};
+
+static std::vector<std::vector<ScanSlot>> scan_slots(
+    const std::vector<uint32_t>& f, int las) {
+  const uint32_t A = (uint32_t)f.size();
+  const int uniq_pos = f[A - 1] == 4096 ? (int)A - 1 : -1;
+  const uint32_t bucket_size = 1u << (12 - las), table_size = 1u << las;
+  std::vector<uint32_t> symbols(table_size, 0), cutoffs(table_size, 0),
+      offsets(table_size, 0);
+  if (uniq_pos >= 0) {
+    for (uint32_t i = 0; i < table_size; i++) {
+      symbols[i] = uniq_pos;
+      offsets[i] = i * bucket_size;
+    }
+  } else {
+    std::vector<uint8_t> underfull, overfull;
+    for (uint32_t pos = 0; pos < A; pos++) {
+      cutoffs[pos] = f[pos];
+      if (cutoffs[pos] < bucket_size)
+        underfull.push_back(pos);
+      else if (cutoffs[pos] > bucket_size)
+        overfull.push_back(pos);
+    }
+    for (uint32_t i = A; i < table_size; i++) underfull.push_back(i);
+    while (!overfull.empty()) {
+      uint8_t u = underfull.back();
+      underfull.pop_back();
+      uint8_t o = overfull.back();
+      overfull.pop_back();
+      cutoffs[o] -= bucket_size - cutoffs[u];
+      offsets[u] = cutoffs[o];
+      symbols[u] = o;
+      if (cutoffs[o] < bucket_size)
+        underfull.push_back(o);
+      else if (cutoffs[o] > bucket_size)
+        overfull.push_back(o);
+    }
+    for (uint32_t sym = 0; sym < table_size; sym++) {
+      if (cutoffs[sym] == bucket_size) {
+        symbols[sym] = sym;
+        cutoffs[sym] = 0;
+        offsets[sym] = 0;
+      } else {
+        offsets[sym] -= cutoffs[sym];
+      }
+    }
+  }
+  std::vector<std::vector<ScanSlot>> slots(A);
+  for (uint32_t sym = 0; sym < A; sym++)
+    slots[sym].push_back({(int32_t)cutoffs[sym], 0, (int32_t)sym});
+  for (uint32_t i = 0; i < table_size; i++)
+    slots[symbols[i]].push_back(
+        {(int32_t)cutoffs[i], (int32_t)offsets[i], (int32_t)i});
+  return slots;
+}
+
+static int scan_low_bits(const std::vector<ScanSlot>& slots, uint32_t offset,
+                         int las) {
+  const int log_bucket = 12 - las;
+  const uint32_t pos_mask = (1u << log_bucket) - 1;
+  for (size_t j = 0; j < slots.size(); j++) {
+    uint32_t pos = offset - slots[j].offset;
+    int32_t k = (int32_t)pos - slots[j].cutoff;
+    if (!(pos & ~pos_mask) && (j > 0 ? k >= 0 : k < 0))
+      return (int)(((uint32_t)slots[j].original << log_bucket) | pos);
+  }
+  return -1;
+}
+
+// Random positive weights over A symbols (a zero now and then, never on
+// the last) scaled to sum to 4096, each nonzero weight at least 1.
+static std::vector<uint32_t> random_hist(uint32_t A) {
+  std::vector<uint32_t> w(A);
+  uint64_t total = 0;
+  for (uint32_t k = 0; k < A; k++) {
+    w[k] = (k + 1 < A && rnd() % 5 == 0) ? 0 : 1 + rnd() % 1000;
+    total += w[k];
+  }
+  std::vector<uint32_t> f(A);
+  uint32_t sum = 0;
+  for (uint32_t k = 0; k < A; k++) {
+    f[k] = w[k] ? std::max<uint32_t>(1, (uint32_t)(w[k] * 4096 / total)) : 0;
+    sum += f[k];
+  }
+  while (sum != 4096) {  // the largest weight takes the difference
+    uint32_t m = (uint32_t)(std::max_element(f.begin(), f.end()) - f.begin());
+    if (sum < 4096) {
+      f[m] += 4096 - sum;
+      sum = 4096;
+    } else {
+      uint32_t by = std::min(sum - 4096, f[m] - 1);
+      f[m] -= by;
+      sum -= by;
+    }
+  }
+  return f;
+}
+
+// Every (symbol, offset < f[symbol]) of each histogram at las 5 to 8:
+// the reverse map's low bits must be what the slot scan finds.
+static void test_ans_reverse_map() {
+  long checked = 0;
+  for (int las = 5; las <= 8; las++) {
+    const uint32_t T = 1u << las, bucket = 4096 / T;
+    std::vector<std::vector<uint32_t>> hists;
+    for (uint32_t A : {1u, 2u, 3u, 17u, T}) {  // uniform
+      std::vector<uint32_t> f(A, 4096 / A);
+      f[0] += 4096 % A;
+      hists.push_back(f);
+    }
+    for (uint32_t A : {1u, 2u, 17u, T}) {  // all mass on the last symbol
+      std::vector<uint32_t> f(A, 0);
+      f[A - 1] = 4096;
+      hists.push_back(f);
+    }
+    for (uint32_t A : {2u, 17u, T}) {  // all mass on another symbol
+      std::vector<uint32_t> f(A, 0);
+      f[rnd() % (A - 1)] = 4096;
+      hists.push_back(f);
+    }
+    for (uint32_t a : {1u, 2u, bucket, 2048u, 4095u, 1 + rnd() % 4095}) {
+      for (uint32_t A : {2u, 17u, T}) {  // two symbols summing to 4096
+        std::vector<uint32_t> f(A, 0);
+        uint32_t i = rnd() % A, j = (i + 1 + rnd() % (A - 1)) % A;
+        f[i] = a;
+        f[j] = 4096 - a;
+        hists.push_back(f);
+      }
+    }
+    for (uint32_t top : {4000u, 4050u, 4096u - (T - 1)}) {  // one dominant
+      std::vector<uint32_t> f(T, 0);
+      f[rnd() % T] = top;
+      for (uint32_t left = 4096 - top; left; left--) {
+        uint32_t k;
+        do k = rnd() % T; while (f[k] >= top);
+        f[k]++;
+      }
+      hists.push_back(f);
+    }
+    for (uint32_t A : {3u, 17u, T}) {  // many at exactly the bucket size
+      std::vector<uint32_t> f(A, 0);
+      uint32_t full = std::min(A - 1, T / 2), left = 4096 - full * bucket;
+      for (uint32_t k = 0; k < full; k++) f[(k * 7) % A] = bucket;
+      for (uint32_t k = 0; k < A && left; k++) {
+        if (f[k]) continue;
+        uint32_t take = k + 1 == A ? left : std::min(left, rnd() % (2 * bucket + 1));
+        f[k] = take;
+        left -= take;
+      }
+      if (left) {  // every symbol already took its share
+        uint32_t k = 0;
+        while (f[k] != bucket) k++;
+        f[k] += left;
+      }
+      hists.push_back(f);
+    }
+    for (int seed = 0; seed < 8; seed++)
+      for (uint32_t A : {1u, 2u, 17u, T}) hists.push_back(random_hist(A));
+
+    for (const auto& f : hists) {
+      uint32_t sum = 0;
+      for (uint32_t v : f) sum += v;
+      if (sum != 4096) {
+        fprintf(stderr, "ans reverse map: test histogram sums to %u\n", sum);
+        exit(1);
+      }
+      std::vector<uint16_t> rev(4096, 0xFFFF);
+      if (hyd_ans_reverse_map(f.data(), (long)f.size(), las, rev.data()) !=
+          0) {
+        fprintf(stderr, "ans reverse map refused a histogram (las %d)\n",
+                las);
+        exit(1);
+      }
+      auto slots = scan_slots(f, las);
+      uint32_t base = 0;
+      for (uint32_t s = 0; s < f.size(); s++) {
+        for (uint32_t o = 0; o < f[s]; o++, checked++) {
+          int want = scan_low_bits(slots[s], o, las);
+          if (want < 0 || rev[base + o] != want) {
+            fprintf(stderr,
+                    "ans reverse map: las %d, A %zu, symbol %u, offset %u: "
+                    "%d, the scan %d\n",
+                    las, f.size(), s, o, (int)rev[base + o], want);
+            exit(1);
+          }
+        }
+        base += f[s];
+      }
+    }
+  }
+  std::vector<uint32_t> bad = {4000, 95};  // sums to 4095
+  std::vector<uint16_t> rev(4096);
+  if (hyd_ans_reverse_map(bad.data(), 2, 8, rev.data()) != -1) {
+    fprintf(stderr, "ans reverse map: a sum of 4095 not refused\n");
+    exit(1);
+  }
+  printf("ans reverse map ok (%ld offsets)\n", checked);
+}
+
+// The encoder's division by a reciprocal: for every freq in 1..4096 the
+// bound that makes it exact for all states below 2^32 (recip * freq
+// exceeds 2^44 by at most 2^12), then the quotient itself at the states'
+// ends, around multiples of freq and on a random sample.
+static void test_ans_div() {
+  long checked = 0;
+  for (uint32_t freq = 1; freq <= 4096; freq++) {
+    uint64_t recip = hyd_ans_recip(freq);
+    unsigned __int128 prod = (unsigned __int128)recip * freq;
+    if (prod < ((unsigned __int128)1 << 44) ||
+        prod - ((unsigned __int128)1 << 44) > (1u << 12)) {
+      fprintf(stderr, "ans div: the reciprocal of %u is off\n", freq);
+      exit(1);
+    }
+    std::vector<uint32_t> states = {0u, 1u, freq - 1, freq, 0xFFFFFFFFu,
+                                    0xFFFFFFFEu, (freq << 20) - 1};
+    uint32_t top = 0xFFFFFFFFu / freq;
+    for (uint32_t q : {1u, 2u, top / 2, top - 1, top})
+      for (int d = -1; d <= 1; d++)
+        states.push_back((uint32_t)((uint64_t)q * freq + d));
+    for (int k = 0; k < 2000; k++) states.push_back(rnd());
+    for (uint32_t st : states) {
+      if (hyd_ans_div(st, freq) != st / freq) {
+        fprintf(stderr, "ans div: %u / %u gave %u\n", st, freq,
+                hyd_ans_div(st, freq));
+        exit(1);
+      }
+      checked++;
+    }
+  }
+  printf("ans div ok (%ld quotients)\n", checked);
+}
+
 // Format-v4 LF residual stream: hybrid-uint-tokenized fields under one
 // fixed 6-bit transport code; hyd_lf_decode must reconstruct the exact
 // pack_signed values and land on the exact bit count.
@@ -492,6 +735,8 @@ int main() {
   test_prefix_streams();
   test_hf_padded();
   test_hf_packed();
+  test_ans_reverse_map();
+  test_ans_div();
   test_lf_decode();
   test_png_unfilter();
   printf("selftest passed\n");

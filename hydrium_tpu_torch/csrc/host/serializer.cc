@@ -664,23 +664,47 @@ void write_ans_frequencies(BitWriter& bw, const std::vector<uint32_t>& f,
   }
 }
 
-struct AliasSlot {
-  int32_t cutoff, offset, original;
+// floor(state / freq) as a multiply and a shift, for every state below
+// 2^32 and freq in 1..4096: recip = ceil(2^44 / freq) = (2^44 + e) / freq
+// with e < freq <= 2^12, so state * recip / 2^44 exceeds state / freq by
+// state * e / (freq * 2^44) < 1 / freq, too little to reach the next
+// integer (Granlund and Montgomery, 1994).  The self-test checks the
+// bound e <= 2^12 for every freq.
+uint64_t ans_recip(uint32_t freq) { return ((1ull << 44) + freq - 1) / freq; }
+
+uint32_t ans_div(uint32_t state, uint64_t recip) {
+  return (uint32_t)(((unsigned __int128)state * recip) >> 44);
+}
+
+// One symbol of a cluster's encode table: its normalized frequency, its
+// reciprocal (ans_recip) and where its run of the reverse map starts.
+struct AnsEncSym {
+  uint64_t recip = 0;
+  uint32_t freq = 0;
+  uint32_t rev = 0;
 };
 
-struct AliasTable {
-  // per symbol: 1 + count slots
-  std::vector<std::vector<AliasSlot>> entries;
-};
-
+// Build the decoder's alias table of a normalized histogram f (entropy.c
+// 184-265) and invert it for the encoder, as libjxl's reverse_map does:
+// enc[s] = {.., f[s], origin + base[s]} with base the prefix sums of f, and
+// rev[base[s] + o] the 12-bit state that the decoder maps to symbol s at
+// offset o.  Each of the 4096 states is visited once by the decoder's
+// rule, so the map is a pure function of f and log_alphabet_size; a
+// table that does not cover every (symbol, offset) once is refused.
 void build_alias(const std::vector<uint32_t>& f, uint32_t A,
-                 int log_alphabet_size, int uniq_pos, AliasTable& out) {
+                 int log_alphabet_size, int uniq_pos, uint32_t origin,
+                 AnsEncSym* enc, uint16_t* rev) {
+  std::vector<uint32_t> base(A + 1, 0);
+  for (uint32_t sym = 0; sym < A; sym++) {
+    enc[sym] = {f[sym] ? ans_recip(f[sym]) : 0, f[sym], origin + base[sym]};
+    base[sym + 1] = base[sym] + f[sym];
+  }
+  if (base[A] != 4096) throw std::runtime_error("ANS frequencies not 4096");
   int log_bucket = 12 - log_alphabet_size;
   uint32_t bucket_size = 1u << log_bucket;
   uint32_t table_size = 1u << log_alphabet_size;
   std::vector<uint32_t> symbols(table_size, 0), cutoffs(table_size, 0),
       offsets(table_size, 0);
-  out.entries.assign(A, {});
   if (uniq_pos >= 0) {
     for (uint32_t i = 0; i < table_size; i++) {
       symbols[i] = uniq_pos;
@@ -723,53 +747,46 @@ void build_alias(const std::vector<uint32_t>& f, uint32_t A,
       }
     }
   }
-  for (uint32_t sym = 0; sym < A; sym++)
-    out.entries[sym].push_back({(int32_t)cutoffs[sym], 0, (int32_t)sym});
-  for (uint32_t i = 0; i < table_size; i++)
-    out.entries[symbols[i]].push_back(
-        {(int32_t)cutoffs[i], (int32_t)offsets[i], (int32_t)i});
+  const uint32_t pos_mask = bucket_size - 1;
+  std::fill(rev + origin, rev + origin + 4096, (uint16_t)0xFFFF);
+  for (uint32_t x = 0; x < 4096; x++) {
+    uint32_t i = x >> log_bucket, pos = x & pos_mask;
+    uint32_t sym = i, off = pos;
+    if (pos >= cutoffs[i]) {
+      sym = symbols[i];
+      off = offsets[i] + pos;
+    }
+    if (sym >= A || off >= f[sym] || rev[origin + base[sym] + off] != 0xFFFF)
+      throw std::runtime_error("alias table does not invert");
+    rev[origin + base[sym] + off] = (uint16_t)x;
+  }
 }
 
 // Backwards rANS encode of syms[start, start+count) with interleaved
-// 16-bit flushes and residue bits on the forward pass.
-void ans_encode_slice(const Sym* syms, size_t count,
-                      const std::vector<std::vector<uint32_t>>& freqs,
-                      const std::vector<AliasTable>& aliases,
-                      int log_alphabet_size, BitWriter& bw) {
-  const int log_bucket = 12 - log_alphabet_size;
-  const uint32_t pos_mask = (1u << log_bucket) - 1;
+// 16-bit flushes and residue bits on the forward pass.  enc holds each
+// cluster's symbols at [cluster << log_alphabet_size | token], rev each
+// cluster's reverse map (build_alias).
+void ans_encode_slice(const Sym* syms, size_t count, const AnsEncSym* enc,
+                      const uint16_t* rev, int log_alphabet_size,
+                      BitWriter& bw) {
   uint32_t state = 0x130000u;
   std::vector<std::pair<uint32_t, uint16_t>> flushes;  // (diff, value)
   size_t last_push = count;
   uint16_t last_value = 0;
   for (size_t p2 = 0; p2 < count; p2++) {
     size_t p = count - 1 - p2;
-    uint32_t token = syms[p].token;
-    uint32_t cluster = syms[p].cluster;
-    uint32_t freq = freqs[cluster][token];
-    if ((state >> 20) >= freq) {
+    const AnsEncSym e =
+        enc[((uint32_t)syms[p].cluster << log_alphabet_size) | syms[p].token];
+    if ((state >> 20) >= e.freq) {
       if (last_push != count)
         flushes.push_back({(uint32_t)(last_push - p), last_value});
       last_push = p;
       last_value = state & 0xFFFF;
       state >>= 16;
     }
-    uint32_t div = state / freq;
-    uint32_t offset = state - div * freq;
-    const auto& slots = aliases[cluster].entries[token];
-    uint32_t i = 0, pos = 0;
-    bool found = false;
-    for (size_t j = 0; j < slots.size(); j++) {
-      pos = offset - slots[j].offset;
-      int32_t k = (int32_t)pos - slots[j].cutoff;
-      if (!(pos & ~pos_mask) && (j > 0 ? k >= 0 : k < 0)) {
-        i = slots[j].original;
-        found = true;
-        break;
-      }
-    }
-    if (!found) throw std::runtime_error("alias lookup failed");
-    state = (div << 12) | (i << log_bucket) | pos;
+    uint32_t div = ans_div(state, e.recip);
+    uint32_t offset = state - div * e.freq;
+    state = (div << 12) | rev[e.rev + offset];
   }
   if (last_push != count)
     flushes.push_back({(uint32_t)last_push, last_value});
@@ -881,7 +898,10 @@ struct HydHF {
   std::vector<size_t> barriers;  // per group symbol counts
   std::vector<uint32_t> presets;
   std::vector<std::vector<uint32_t>> freqs;
-  std::vector<AliasTable> aliases;
+  // encode tables of every cluster (build_alias), flat: enc at
+  // [cluster << las | token], rev at [cluster << 12 | ...]
+  std::vector<AnsEncSym> enc;
+  std::vector<uint16_t> rev;
   int las = 0;
   int las_forced = 0;  // streaming mode fixes las so per-preset flushes
                        // stay consistent with the shared header
@@ -1212,12 +1232,15 @@ int hyd_hf_prepare(HydHF* h) {
     if (h->las < 5 || h->las > 8)
       throw std::runtime_error("las outside [5, 8] (alphabet too large "
                                "or bad force_las)");
-    h->aliases.assign(h->num_clusters, {});
+    h->enc.assign(h->num_clusters << h->las, {});
+    h->rev.assign(h->num_clusters << 12, 0);
     for (size_t c = 0; c < h->num_clusters; c++) {
       if (!h->alphabet_sizes[c]) continue;
       bool uniq = normalize_ans(h->freqs[c], h->alphabet_sizes[c]);
       build_alias(h->freqs[c], h->alphabet_sizes[c], h->las,
-                  uniq ? (int)h->alphabet_sizes[c] - 1 : -1, h->aliases[c]);
+                  uniq ? (int)h->alphabet_sizes[c] - 1 : -1,
+                  (uint32_t)(c << 12), h->enc.data() + (c << h->las),
+                  h->rev.data());
     }
     return 0;
   } catch (const std::exception&) {
@@ -1231,8 +1254,8 @@ int hyd_hf_encode_group(HydHF* h, long g, int preset_bits, HydWriter* w) {
     size_t off = 0;
     for (long i = 0; i < g; i++) off += h->barriers[i];
     w->bw.write(h->presets[g], preset_bits);
-    ans_encode_slice(h->syms.data() + off, h->barriers[g], h->freqs,
-                     h->aliases, h->las, w->bw);
+    ans_encode_slice(h->syms.data() + off, h->barriers[g], h->enc.data(),
+                     h->rev.data(), h->las, w->bw);
     return 0;
   } catch (const std::exception&) {
     return -1;
@@ -1240,6 +1263,8 @@ int hyd_hf_encode_group(HydHF* h, long g, int preset_bits, HydWriter* w) {
 }
 
 long hyd_hf_num_groups(HydHF* h) { return (long)h->barriers.size(); }
+// symbols added, which prepare counts and encode_all encodes
+long hyd_hf_num_symbols(HydHF* h) { return (long)h->syms.size(); }
 int hyd_hf_las(HydHF* h) { return h->las; }
 void hyd_hf_force_las(HydHF* h, int las) { h->las_forced = las; }
 long hyd_hf_max_alphabet(HydHF* h) { return h->max_alphabet_size; }
@@ -1303,7 +1328,8 @@ int hyd_hf_encode_all(HydHF* h, int preset_bits, HydWriter** writers,
       try {
         writers[g]->bw.write(h->presets[g], preset_bits);
         ans_encode_slice(h->syms.data() + offsets[g], h->barriers[g],
-                         h->freqs, h->aliases, h->las, writers[g]->bw);
+                         h->enc.data(), h->rev.data(), h->las,
+                         writers[g]->bw);
       } catch (const std::exception&) {
         failed.store(1);
       }
@@ -1314,6 +1340,31 @@ int hyd_hf_encode_all(HydHF* h, int preset_bits, HydWriter** writers,
   worker(0);
   for (auto& th : threads) th.join();
   return failed.load() ? -1 : 0;
+}
+
+// The reverse map of one normalized histogram f[0..A) summing to 4096,
+// as hyd_hf_prepare builds it (all mass on the last symbol selects the
+// one-symbol layout): rev[base[s] + o] is the state's low 12 bits for
+// symbol s at offset o < f[s], base the prefix sums of f.  0, or -1
+// where f does not give a table.  For the self-test.
+int hyd_ans_reverse_map(const uint32_t* f, long A, int las, uint16_t* rev) {
+  try {
+    if (A < 1 || las < 5 || las > 8 || A > (1L << las)) return -1;
+    std::vector<uint32_t> fv(f, f + A);
+    std::vector<AnsEncSym> enc(A);
+    build_alias(fv, (uint32_t)A, las, fv[A - 1] == 4096 ? (int)A - 1 : -1, 0,
+                enc.data(), rev);
+    return 0;
+  } catch (const std::exception&) {
+    return -1;
+  }
+}
+
+// The reciprocal of freq and floor(state / freq) as the ANS encoder
+// computes them.  For the self-test.
+uint64_t hyd_ans_recip(uint32_t freq) { return ans_recip(freq); }
+uint32_t hyd_ans_div(uint32_t state, uint32_t freq) {
+  return ans_div(state, ans_recip(freq));
 }
 
 // PNG row defilter (spec 9.2): reconstruct one scanline in place.

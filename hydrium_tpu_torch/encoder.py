@@ -888,7 +888,8 @@ class Encoder:
             write_lf_group(asm.working, lf_q, lf_res)
             asm.end_section()
         with self.stats.stage("ans_encode", tag):
-            hf.encode_group_sections()
+            encoded = hf.encode_group_sections()
+        self.stats.count("ans_symbols", encoded)
         hf.write_hf_global(asm.working, geo.num_frame_groups)
         asm.end_section()
         for gbw in hf.group_sections:
@@ -1211,7 +1212,8 @@ class Encoder:
             self._write_lf(lf_q, lf_res, tag)
             if self.streaming:
                 with self.stats.stage("ans_encode", tag):
-                    self._hf.finish_lfg(preset)
+                    encoded = self._hf.finish_lfg(preset)
+                self.stats.count("ans_symbols", encoded)
             return
         with self.stats.stage("dispatch", tag):
             handle = self._dispatch(pixels, fmt, lfg, preset, self._hf)
@@ -1229,7 +1231,8 @@ class Encoder:
             lf_q, lf_res = handle.drain()
         if self.streaming:
             with self.stats.stage("ans_encode", handle.tag):
-                self._hf.finish_lfg(handle.preset)
+                encoded = self._hf.finish_lfg(handle.preset)
+            self.stats.count("ans_symbols", encoded)
         return lf_q, lf_res
 
     def _drain_one(self) -> None:
@@ -1255,7 +1258,8 @@ class Encoder:
         hf = self._hf
         geo = self._geo
         with self.stats.stage("ans_encode"):
-            hf.encode_group_sections()
+            encoded = hf.encode_group_sections()
+        self.stats.count("ans_symbols", encoded)
 
         if self.streaming:
             # bounded-output finalize: compute section sizes (bytes stay

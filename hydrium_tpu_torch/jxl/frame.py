@@ -395,8 +395,9 @@ class HFStream:
                                     self.cluster_map, preset, grid, extent,
                                     tok_bit_offs, res_bit_offs, sym_counts)
 
-    def encode_group_sections(self) -> None:
-        """Encode every pending group's ANS section (encoder.c:931-952).
+    def encode_group_sections(self) -> int:
+        """Encode every pending group's ANS section (encoder.c:931-952);
+        returns the symbols encoded.
 
         All sections are encoded here, with the final log_alphabet_size,
         rather than per-preset as tiles arrive -- see the consistency note
@@ -406,7 +407,7 @@ class HFStream:
         if self.use_native:
             self._native.prepare()
             self.group_sections = self._native.encode_all(bits)
-            return
+            return self._native.num_symbols
         self.stream.ans_prepare_frequencies(0, self.stream.num_clusters, 0,
                                             self.stream.symbol_count)
         soff = 0
@@ -418,6 +419,7 @@ class HFStream:
             self.group_sections.append(gbw)
         self._barriers.clear()
         self._presets.clear()
+        return soff
 
     def write_hf_global(self, bw, num_frame_groups: int) -> None:
         """encoder.c:959-967."""
@@ -515,17 +517,20 @@ class StreamingHFStream:
         real = min((vh + 31) >> 5, gcy) * min((vw + 31) >> 5, gcx)
         self._pending_groups[preset] += real
 
-    def finish_lfg(self, preset: int) -> None:
-        """Signal that one LF group of `preset` has been fully added."""
+    def finish_lfg(self, preset: int) -> int:
+        """Signal that one LF group of `preset` has been fully added;
+        returns the symbols ANS-encoded (the preset's, at its last LF
+        group, else 0)."""
         self._lfg_runs[preset].append(
             (self._global_arrival, self._pending_groups[preset]))
         self._global_arrival += 1
         self._pending_groups[preset] = 0
         self._arrived[preset] += 1
         if self._arrived[preset] == self._expected[preset]:
-            self._flush_preset(preset)
+            return self._flush_preset(preset)
+        return 0
 
-    def _flush_preset(self, preset: int) -> None:
+    def _flush_preset(self, preset: int) -> int:
         hf = self._per_preset.pop(preset)
         hf.prepare()
         writers = hf.encode_all(cllog2(self.num_presets))
@@ -554,6 +559,7 @@ class StreamingHFStream:
         per = self._num_clusters // self.num_presets
         for c in range(per * preset, per * (preset + 1)):
             self._freqs[c] = hf.frequencies(c)
+        return hf.num_symbols
 
     def add_group_padded(self, tokens, clusters, residues, residue_bits,
                          valid_len, preset: int) -> None:
@@ -561,8 +567,9 @@ class StreamingHFStream:
                                           residue_bits, valid_len, preset)
         self._pending_groups[preset] += 1
 
-    def encode_group_sections(self) -> None:
+    def encode_group_sections(self) -> int:
         assert not self._per_preset, "unflushed presets remain"
+        return 0
 
     def iter_sections(self):
         """Yield (bytes, tail_value, tail_bits) per group section, in

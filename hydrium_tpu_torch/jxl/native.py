@@ -129,6 +129,8 @@ def _load():
                                             ctypes.c_long, P]
         lib.hyd_hf_num_groups.restype = ctypes.c_long
         lib.hyd_hf_num_groups.argtypes = [P]
+        lib.hyd_hf_num_symbols.restype = ctypes.c_long
+        lib.hyd_hf_num_symbols.argtypes = [P]
         lib.hyd_hf_force_las.argtypes = [P, ctypes.c_int]
         lib.hyd_hf_las.restype = ctypes.c_int
         lib.hyd_hf_las.argtypes = [P]
@@ -422,6 +424,11 @@ class NativeHF:
     @property
     def las(self) -> int:
         return self._lib.hyd_hf_las(self._h)
+
+    @property
+    def num_symbols(self) -> int:
+        """The symbols added, which encode_all encodes."""
+        return self._lib.hyd_hf_num_symbols(self._h)
 
     def frequencies(self, cluster: int, cap: int = 512) -> np.ndarray:
         out = np.zeros(cap, np.uint32)

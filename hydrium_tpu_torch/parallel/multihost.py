@@ -298,7 +298,8 @@ def encode_image_multihost(image, *, linear_light: bool = False,
             write_lf_group(bw, lf_q, lf_res)
             lf_secs.append((lfid, bw.export_raw()))
         with stats.stage("ans_encode"):
-            hf.finish_lfg(preset)
+            encoded = hf.finish_lfg(preset)
+        stats.count("ans_symbols", encoded)
     hf.encode_group_sections()   # asserts all local presets flushed
 
     hf_keys = [(lfid, j) for lfid in my_lfids

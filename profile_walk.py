@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Time the packed walk (csrc/host/serializer.cc hyd_hf_add_lfg_packed,
 through jxl/native.py NativeHF.add_lfg_packed) of one photo4k image's
-four LF-group payloads, at 1, 2, 4 and 8 threads, on the card's host.
+four LF-group payloads, and the ANS of its symbols (NativeHF.prepare,
+encode_all and the sections' export), at 1, 2, 4 and 8 threads, on the
+card's host.
 
     python3 profile_walk.py [--root DIR] [--seed N] [--reps R]
         [--device cuda|cpu] [--crop HxW] [--out PATH]
@@ -16,14 +18,15 @@ from its own checkout: this one and, with --root, the one unpacked at
 DIR (`git archive` of another commit), in the order root, this, this,
 root.  A replay walks the image R times at each thread count, the
 counts in turns, each time into fresh NativeHFs (one per preset, as
-the encoder keeps them), and after the first walk at each count
-prepares them and ANS-encodes every section: the las, every cluster's
-frequencies and the sections' bytes must be the same at every thread
-count and on both sides.  Prints the card's name and power limit, one
-JSON line a side (ms per image and ns per symbol, each walk), and a
-summary line: per side and thread count the median and quartile
-distance of ms per image, and ns per symbol at the median.  --device
-cpu --crop 256x512 rehearses the script on a machine without a card.
+the encoder keeps them), then prepares them, ANS-encodes every section
+on as many threads and exports the sections and frequencies, each
+stage timed: the las, every cluster's frequencies and the sections'
+bytes must be the same at every thread count and on both sides.
+Prints the card's name and power limit, one JSON line a side (ms per
+image of each stage, each time), and a summary line: per side, stage
+and thread count the median and quartile distance of ms per image,
+and ns per symbol at the median.  --device cpu --crop 256x512
+rehearses the script on a machine without a card.
 
     python3 profile_walk.py --capture PATH --seed N --device D --crop HxW
     python3 profile_walk.py --replay PATH --reps R
@@ -43,6 +46,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 THREADS = (1, 2, 4, 8)
+STAGES = ("walk", "prepare", "encode_all", "export")
 
 
 def capture(path: str, seed: int, device: str, crop) -> int:
@@ -132,19 +136,34 @@ def _walk(native, payloads, n_threads: int):
     return secs, hfs
 
 
-def _digest(hfs, payloads) -> str:
-    h = hashlib.sha256()
-    n_clusters = int(payloads[0]["cluster_map"].max()) + 1
+def _ans(hfs, n_clusters: int, n_threads: int):
+    """Prepare, encode_all on n_threads and export of every preset's
+    NativeHF: ({stage: seconds}, sha256 of the las, every cluster's
+    frequencies and every section)."""
+    secs = dict.fromkeys(STAGES[1:], 0.0)
+    results = []
     for preset in sorted(hfs):
         hf = hfs[preset]
+        t0 = time.perf_counter()
         hf.prepare()
-        h.update(str(hf.las).encode())
-        for c in range(n_clusters):
-            h.update(hf.frequencies(c).tobytes())
-        for w in hf.encode_all(3):
-            data, tail, bits = w.export_raw()
+        t1 = time.perf_counter()
+        writers = hf.encode_all(3, n_threads=n_threads)
+        t2 = time.perf_counter()
+        results.append((hf.las,
+                        [hf.frequencies(c) for c in range(n_clusters)],
+                        [w.export_raw() for w in writers]))
+        t3 = time.perf_counter()
+        secs["prepare"] += t1 - t0
+        secs["encode_all"] += t2 - t1
+        secs["export"] += t3 - t2
+    h = hashlib.sha256()
+    for las, freqs, sections in results:
+        h.update(str(las).encode())
+        for f in freqs:
+            h.update(f.tobytes())
+        for data, tail, bits in sections:
             h.update(data + str((tail, bits)).encode())
-    return h.hexdigest()
+    return secs, h.hexdigest()
 
 
 def replay(path: str, reps: int) -> int:
@@ -154,22 +173,25 @@ def replay(path: str, reps: int) -> int:
     assert native.__file__.startswith(os.getcwd()), native.__file__
     payloads = _load(path)
     symbols = int(sum(p["gs"].sum() for p in payloads))
-    walks = {n: [] for n in THREADS}
-    digests = {}
+    n_clusters = int(payloads[0]["cluster_map"].max()) + 1
+    times = {st: {n: [] for n in THREADS} for st in STAGES}
+    digests = set()
     _walk(native, payloads, 1)      # builds and loads the library
-    for r in range(reps):
+    for _ in range(reps):
         for n in THREADS:
-            secs, hfs = _walk(native, payloads, n)
-            walks[n].append(secs)
-            if r == 0:
-                digests[n] = _digest(hfs, payloads)
-    if len(set(digests.values())) != 1:
+            walk, hfs = _walk(native, payloads, n)
+            ans, digest = _ans(hfs, n_clusters, n)
+            digests.add(digest)
+            times["walk"][n].append(walk)
+            for st, sec in ans.items():
+                times[st][n].append(sec)
+    if len(digests) != 1:
         raise RuntimeError(f"thread counts gave other results: {digests}")
     print(json.dumps({
-        "root": os.getcwd(), "symbols": symbols, "digest": digests[1],
-        "ms_per_image": {n: [1e3 * s for s in w] for n, w in walks.items()},
-        "ns_per_sym": {n: [1e9 * s / symbols for s in w]
-                       for n, w in walks.items()}}), flush=True)
+        "root": os.getcwd(), "symbols": symbols, "digest": digests.pop(),
+        "ms_per_image": {st: {n: [1e3 * s for s in w]
+                              for n, w in by_n.items()}
+                         for st, by_n in times.items()}}), flush=True)
     return 0
 
 
@@ -236,12 +258,13 @@ def main() -> int:
     summary = {"card": card, "order": [label for label, _ in sides],
                "symbols": runs[0][1]["symbols"]}
     for label in dict.fromkeys(label for label, _ in sides):
-        for n in map(str, THREADS):
-            ms = [v for lab, line in runs if lab == label
-                  for v in line["ms_per_image"][n]]
-            q = _quartiles(ms)
-            q["ns_per_sym"] = 1e6 * q["median"] / runs[0][1]["symbols"]
-            summary[f"{label}_t{n}"] = q
+        for st in STAGES:
+            for n in map(str, THREADS):
+                ms = [v for lab, line in runs if lab == label
+                      for v in line["ms_per_image"][st][n]]
+                q = _quartiles(ms)
+                q["ns_per_sym"] = 1e6 * q["median"] / runs[0][1]["symbols"]
+                summary[f"{label}_{st}_t{n}"] = q
     print(json.dumps(summary), flush=True)
     if args.out:
         with open(args.out, "w") as f:
