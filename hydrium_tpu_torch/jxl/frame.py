@@ -10,6 +10,11 @@ HFStream.add_group_padded's pure-Python branch.
 
 from __future__ import annotations
 
+import itertools
+import os
+import shutil
+import tempfile
+import weakref
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -126,6 +131,26 @@ class FrameGeometry:
     def lfg_per_preset(self) -> int:
         return (self.lfg_per_frame + 255) // 256
 
+    @property
+    def preset_lfg_counts(self) -> List[int]:
+        """LF groups per histogram preset, by preset id."""
+        per = self.lfg_per_preset
+        return [max(0, min(per, self.lfg_per_frame - p * per))
+                for p in range(self.num_presets)]
+
+
+def one_frame_geometry(width: int, height: int) -> FrameGeometry:
+    """A one-frame image's geometry: its 2048x2048 LF groups in raster
+    order, none of them arrived yet."""
+    count_x, count_y = (width + 2047) >> 11, (height + 2047) >> 11
+    lfgs = [LFGroupGeometry(x=x, y=y, width=min(2048, width - x * 2048),
+                            height=min(2048, height - y * 2048),
+                            tile_count_x=8, tile_count_y=8)
+            for y in range(count_y) for x in range(count_x)]
+    return FrameGeometry(image_width=width, image_height=height,
+                         one_frame=True, lfg_count_x=count_x,
+                         lf_groups=lfgs, lfg_arrival=[])
+
 
 def calculate_toc_permutation(geo: FrameGeometry) -> List[int]:
     """Physical-section-order -> logical-TOC-index map (encoder.c:241-268)."""
@@ -213,6 +238,110 @@ def write_frame_header(bw: BitWriter, geo: FrameGeometry, is_last: bool) -> None
     else:
         bw.write_bool(False)
     bw.zero_pad()
+
+
+# Sort keys of a one-frame encode's sections: LF global and the LF groups
+# take the default key () and leave in the order put; then HF global;
+# then the HF groups, which a streaming encode's presets flush out of LF
+# group arrival order, by HF_GROUPS_KEY + (arrival, group).
+HF_GLOBAL_KEY = (1,)
+HF_GROUPS_KEY = (2,)
+
+
+class FrameSections:
+    """The sections of one frame and the TOC that sizes them: the one
+    writer of a frame's layout (the reference's working writer and
+    section end positions, internal.h:56-67).
+
+    Each section is put raw, as export_raw gives it (bytes, tail_val,
+    tail_bits), under a sort key, and sections leave in key order (a
+    stable sort).  A frame of several groups pads each section to a byte
+    and lists their sizes in its TOC; a frame of one group concatenates
+    its sections at bit level under a one-entry TOC.  With spool_dir the
+    bytes go to files in a temp subdirectory of the store's own (encoders
+    sharing one spool_dir never overwrite each other's files), read back
+    in bounded chunks; it is removed when chunks() ends, at close(), or
+    by a weakref.finalize backstop at GC or interpreter exit."""
+
+    def __init__(self, multi_section: bool,
+                 spool_dir: Optional[str] = None) -> None:
+        self.multi_section = multi_section
+        # (key, bytes | path, tail_val, tail_bits, nbytes); a streaming
+        # encode puts from its drain thread and its calling thread
+        self._items: List = []
+        self._names = itertools.count()
+        self._dir = self._cleanup = None
+        if spool_dir is not None:
+            self._dir = tempfile.mkdtemp(prefix="hydspool-", dir=spool_dir)
+            self._cleanup = weakref.finalize(self, shutil.rmtree,
+                                             self._dir, True)
+
+    def add(self, raw, key=()) -> None:
+        data, tail_val, tail_bits = raw
+        src = data
+        if self._dir is not None:
+            src = os.path.join(self._dir, f"sec{next(self._names)}.bin")
+            with open(src, "wb") as f:
+                f.write(data)
+        self._items.append((key, src, tail_val, tail_bits, len(data)))
+
+    def write(self, write_section, *args, key=()) -> None:
+        """Put the section that write_section(writer, *args) writes."""
+        bw = new_bitwriter()
+        write_section(bw, *args)
+        self.add(bw.export_raw(), key)
+
+    def _ordered(self) -> List:
+        self._items.sort(key=lambda item: item[0])
+        return self._items
+
+    def items(self):
+        """(key, (bytes, tail_val, tail_bits)) per section in key order;
+        a spooled section is read whole."""
+        for key, src, tail_val, tail_bits, _n in self._ordered():
+            if isinstance(src, str):
+                with open(src, "rb") as f:
+                    src = f.read()
+            yield key, (src, tail_val, tail_bits)
+
+    def write_toc(self, bw) -> None:
+        """The TOC's section sizes, between two zero-pads."""
+        bw.zero_pad()
+        if self.multi_section:
+            for _k, _s, _v, tail_bits, nbytes in self._ordered():
+                bw.write_u32(TOC_TABLE, nbytes + (tail_bits > 0))
+        else:
+            bits = sum(8 * item[4] + item[3] for item in self._items)
+            bw.write_u32(TOC_TABLE, (bits + 7) >> 3)
+        bw.zero_pad()
+
+    def chunks(self):
+        """The frame's bytes after its TOC, section by section in key
+        order; closes the store when done."""
+        try:
+            if not self.multi_section:
+                bw = new_bitwriter()
+                for _key, (data, tail_val, tail_bits) in self.items():
+                    bw.append_bytes(data)
+                    bw.write(tail_val, tail_bits)
+                yield bw.finalize()
+                return
+            for _key, src, tail_val, tail_bits, _n in self._ordered():
+                if isinstance(src, str):
+                    with open(src, "rb") as f:
+                        while chunk := f.read(1 << 22):
+                            yield chunk
+                else:
+                    yield src
+                if tail_bits:
+                    yield bytes([tail_val & ((1 << tail_bits) - 1)])
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        """Remove the spool directory now (idempotent)."""
+        if self._cleanup is not None:
+            self._cleanup()
 
 
 def write_lf_global(bw: BitWriter) -> None:
@@ -438,18 +567,19 @@ class StreamingHFStream:
     Instead of accumulating every group's symbols until finalize (the
     HFStream above), each histogram preset is ANS-encoded as soon as its
     last LF group arrives, and only the *encoded section bytes* are
-    retained (optionally spooled to disk).  To keep mid-stream encoding
-    consistent with the shared histogram header written at the end, the
-    ANS log_alphabet_size is fixed at 8 -- self-consistent by
-    construction, unlike the reference's evolving value (see encoder.py
-    docstring); identical compressed size, different bytes.
+    retained, in `sections` (the frame's FrameSections, in RAM or
+    spooled to disk).  To keep mid-stream encoding consistent with the
+    shared histogram header written at the end, the ANS
+    log_alphabet_size is fixed at 8 -- self-consistent by construction,
+    unlike the reference's evolving value (see encoder.py docstring);
+    identical compressed size, different bytes.
 
     Requires the native serialization plane."""
 
     FIXED_LAS = 8
 
     def __init__(self, num_presets: int, lfgs_per_preset_count,
-                 spool_dir: Optional[str] = None) -> None:
+                 sections: FrameSections) -> None:
         """lfgs_per_preset_count: list of LFG counts per preset id."""
         assert native.available(), "streaming mode needs the native plane"
         self.num_presets = num_presets
@@ -459,43 +589,17 @@ class StreamingHFStream:
         self._expected = list(lfgs_per_preset_count)
         self._arrived = [0] * num_presets
         self._per_preset: dict = {}
-        # unique per-stream temp subdirectory: concurrent encoders
-        # sharing one scratch dir (multi-host processes) must never
-        # overwrite each other's section files
-        self._spool_dir = None
-        self._cleanup = None
-        if spool_dir is not None:
-            import shutil
-            import tempfile
-            import weakref
-
-            self._spool_dir = tempfile.mkdtemp(prefix="hydspool-",
-                                               dir=spool_dir)
-            # weakref.finalize (not __del__): runs at GC, at interpreter
-            # exit via its atexit hook, and survives reference cycles;
-            # close() triggers it explicitly at stream end (ADVICE r3)
-            self._cleanup = weakref.finalize(self, shutil.rmtree,
-                                             self._spool_dir, True)
-        # per-group encoded sections keyed by GLOBAL arrival order: when
+        # group sections are keyed by GLOBAL arrival order: when
         # lfg_per_preset > 1 and tiles arrive out of order, presets can
         # flush out of arrival order, but the TOC permutation assumes
         # sections appear in LFG-arrival order (calculate_toc_permutation)
-        # -- so each section carries its arrival key and iter_sections
-        # sorts.  Entry: (key, (bytes|path, tail_val, tail_bits)).
-        self._sections: List = []
-        self._freqs: List[Optional[np.ndarray]] = [None] * self._num_clusters
+        self.sections = sections
+        self._freqs: dict = {}
         # arrival bookkeeping: groups added since the preset's last
         # finish_lfg, and (arrival_idx, n_groups) runs per preset
         self._pending_groups = [0] * num_presets
         self._lfg_runs: dict = {p: [] for p in range(num_presets)}
         self._global_arrival = 0
-        self._spool_count = 0
-
-    def close(self) -> None:
-        """Remove the spool directory now (idempotent; otherwise runs
-        via weakref.finalize at GC or interpreter exit)."""
-        if self._cleanup is not None:
-            self._cleanup()
 
     def _preset_hf(self, preset: int) -> native.NativeHF:
         hf = self._per_preset.get(preset)
@@ -541,25 +645,17 @@ class StreamingHFStream:
             keys.extend((arrival_idx, j) for j in range(n_groups))
         assert len(keys) == len(writers)
         for key, w in zip(keys, writers):
-            raw = w.export_raw()
-            if self._spool_dir is not None:
-                import os as _os
-
-                path = _os.path.join(self._spool_dir,
-                                     f"sec{self._spool_count}.bin")
-                self._spool_count += 1
-                with open(path, "wb") as f:
-                    f.write(raw[0])
-                self._sections.append(
-                    (key, (path, raw[1], raw[2], len(raw[0]))))
-            else:
-                self._sections.append(
-                    (key, (raw[0], raw[1], raw[2], len(raw[0]))))
+            self.sections.add(w.export_raw(), HF_GROUPS_KEY + key)
         # clusters for this preset occupy a contiguous id range
         per = self._num_clusters // self.num_presets
         for c in range(per * preset, per * (preset + 1)):
             self._freqs[c] = hf.frequencies(c)
         return hf.num_symbols
+
+    def frequencies(self) -> dict:
+        """{cluster: normalized frequency table} of the presets flushed
+        so far."""
+        return dict(self._freqs)
 
     def add_group_padded(self, tokens, clusters, residues, residue_bits,
                          valid_len, preset: int) -> None:
@@ -571,41 +667,24 @@ class StreamingHFStream:
         assert not self._per_preset, "unflushed presets remain"
         return 0
 
-    def iter_sections(self):
-        """Yield (bytes, tail_value, tail_bits) per group section, in
-        global LFG-arrival order (the order the TOC permutation maps)."""
-        for _key, sec in sorted(self._sections, key=lambda kv: kv[0]):
-            if isinstance(sec[0], str):
-                with open(sec[0], "rb") as f:
-                    yield f.read(), sec[1], sec[2]
-            else:
-                yield sec[0], sec[1], sec[2]
-
-    def iter_section_meta(self):
-        """Yield (tail_val, tail_bits, nbytes) per section in the same
-        order as iter_sections, WITHOUT reading spooled bytes -- the
-        bounded-output finalize sizes the TOC from this."""
-        for _key, sec in sorted(self._sections, key=lambda kv: kv[0]):
-            yield sec[1], sec[2], sec[3]
-
     def write_hf_global(self, bw, num_frame_groups: int) -> None:
-        write_hf_global_fixed_las(bw, self.cluster_map, self._num_clusters,
-                                  self.num_presets, self._freqs,
-                                  num_frame_groups, self.FIXED_LAS)
+        write_hf_global_fixed_las(bw, self.cluster_map, self.num_presets,
+                                  self._freqs, num_frame_groups,
+                                  self.FIXED_LAS)
 
 
-def write_hf_global_fixed_las(bw, cluster_map, num_clusters: int,
-                              num_presets: int, freqs,
+def write_hf_global_fixed_las(bw, cluster_map, num_presets: int, freqs,
                               num_frame_groups: int, fixed_las: int) -> None:
     """HFGlobal + shared ANS histogram header with a fixed
     log_alphabet_size (the streaming / multi-host scheme -- sections can
     be encoded before the whole frame's alphabet is known because the
-    las never changes; see StreamingHFStream).  `freqs[c]` is the
-    normalized frequency table of cluster c, or None/empty when the
-    cluster saw no symbols."""
+    las never changes; see StreamingHFStream).  `freqs` maps cluster c
+    to its normalized frequency table; a cluster absent, or with an
+    empty table, saw no symbols."""
     from .entropy import write_cluster_map, write_ans_frequencies
     from .entropy import write_hybrid_uint_config
 
+    num_clusters = int(cluster_map.max()) + 1
     bw.write_bool(True)
     bw.write(num_presets - 1, cllog2(num_frame_groups))
     bw.write(2, 2)
@@ -617,7 +696,7 @@ def write_hf_global_fixed_las(bw, cluster_map, num_clusters: int,
     for _ in range(num_clusters):
         write_hybrid_uint_config(bw, (4, 1, 0), fixed_las)
     for c in range(num_clusters):
-        f = freqs[c]
+        f = freqs.get(c)
         if f is None or len(f) == 0:
             write_ans_frequencies(bw, [], 0)
         else:

@@ -229,10 +229,10 @@ def encode_image_multihost(image, *, linear_light: bool = False,
     and front (fused_front: None follows HYDRIUM_PALLAS)."""
     from ..config import ImageMetadata
     from ..device import resolve_device
-    from ..encoder import _FrameAssembler, _TorchDispatch
+    from ..encoder import _TorchDispatch
     from ..jxl import headers, native
-    from ..jxl.frame import (FrameGeometry, LFGroupGeometry,
-                             StreamingHFStream, new_bitwriter,
+    from ..jxl.frame import (FrameSections, StreamingHFStream,
+                             new_bitwriter, one_frame_geometry,
                              write_frame_header, write_hf_global_fixed_las,
                              write_lf_global, write_lf_group)
     from ..jxl.tokcode import TokenCodec
@@ -250,27 +250,18 @@ def encode_image_multihost(image, *, linear_light: bool = False,
         dev = torch.device("cuda", pid % torch.cuda.device_count())
     h, w = image.shape[:2]
     meta = ImageMetadata(width=w, height=h, linear_light=linear_light)
-    lfgs = [
-        LFGroupGeometry(x=x, y=y,
-                        width=min(2048, w - x * 2048),
-                        height=min(2048, h - y * 2048),
-                        tile_count_x=8, tile_count_y=8)
-        for y in range(meta.lfg_count_y) for x in range(meta.lfg_count_x)
-    ]
+    geo = one_frame_geometry(w, h)
+    lfgs = geo.lf_groups
     n = len(lfgs)
-    geo = FrameGeometry(image_width=w, image_height=h, one_frame=True,
-                        lfg_count_x=meta.lfg_count_x, lf_groups=lfgs,
-                        lfg_arrival=list(range(n)))
+    geo.lfg_arrival.extend(range(n))
     num_presets = geo.num_presets
     lpp = geo.lfg_per_preset
     my_presets = _assign_presets(num_presets, n_proc, pid)
     my_lfids = [i for p in my_presets
                 for i in range(p * lpp, min((p + 1) * lpp, n))]
 
-    counts = [0] * num_presets
-    for i in range(n):
-        counts[i // lpp] += 1
-    hf = StreamingHFStream(num_presets, counts, spool_dir=spool_dir)
+    hf = StreamingHFStream(num_presets, geo.preset_lfg_counts,
+                           FrameSections(True, spool_dir))
     codec = TokenCodec()
     front = FrontEnd.from_tables().to(dev)
     fused = default_fused() if fused_front is None else bool(fused_front)
@@ -302,16 +293,16 @@ def encode_image_multihost(image, *, linear_light: bool = False,
         stats.count("ans_symbols", encoded)
     hf.encode_group_sections()   # asserts all local presets flushed
 
-    hf_keys = [(lfid, j) for lfid in my_lfids
-               for j in range(lfgs[lfid].group_count)]
-    hf_secs = list(zip(hf_keys, hf.iter_sections()))
-    if len(hf_secs) != len(hf_keys):
+    # an HF section's key ends in (arrival, j); this process's LF groups
+    # arrived in my_lfids order
+    hf_secs = [((my_lfids[key[-2]], key[-1]), raw)
+               for key, raw in hf.sections.items()]
+    n_groups = sum(lfgs[lfid].group_count for lfid in my_lfids)
+    if len(hf_secs) != n_groups:
         raise RuntimeError(f"{len(hf_secs)} HF sections for "
-                           f"{len(hf_keys)} groups")
-    per = hf._num_clusters // num_presets
-    my_freqs = {c: hf._freqs[c] for p in my_presets
-                for c in range(per * p, per * (p + 1))}
-    hf.close()   # sections fully materialized above; drop the spool now
+                           f"{n_groups} groups")
+    my_freqs = hf.frequencies()
+    hf.sections.close()   # sections read whole above; drop the spool now
 
     payload = _pack_sections(lf_secs, hf_secs, my_freqs)
     del lf_secs, hf_secs
@@ -323,53 +314,30 @@ def encode_image_multihost(image, *, linear_light: bool = False,
     # -- process 0: assemble ------------------------------------------------
     all_lf: dict = {}
     all_hf: dict = {}
-    freqs = [None] * hf._num_clusters
+    freqs: dict = {}
     while gathered:
         # each blob is dropped once its sections are out
         part_lf, part_hf, part_freqs = _unpack_sections(gathered.pop(0))
         all_lf.update(part_lf)
         all_hf.update(part_hf)
-        for c, f in part_freqs.items():
-            freqs[c] = f
+        freqs.update(part_freqs)
     if len(all_lf) != n:
         raise RuntimeError(f"missing LF sections: have {sorted(all_lf)}")
 
     main = new_bitwriter()
     headers.write_image_header(main, w, h, meta.level10)
     write_frame_header(main, geo, True)
-    lf_global, hf_global = new_bitwriter(), new_bitwriter()
-    write_lf_global(lf_global)
-    write_hf_global_fixed_las(hf_global, hf.cluster_map,
-                              hf._num_clusters, num_presets, freqs,
-                              geo.num_frame_groups,
-                              StreamingHFStream.FIXED_LAS)
-    sections = ([lf_global.export_raw()]
-                + [all_lf.pop(lfid) for lfid in range(n)]
-                + [hf_global.export_raw()]
-                + [all_hf.pop(key) for key in sorted(all_hf)])
-    asm = _FrameAssembler(geo.toc_size > 1)
-    if not asm.multi_section:
-        # one group: the sections share bytes, so they go through the
-        # bit writer (a frame this small holds nothing large)
-        for data, tail_val, tail_bits in sections:
-            asm.working.append_bytes(data)
-            asm.working.write(tail_val, tail_bits)
-        asm.write_toc_sizes(main)
-        return main.finalize() + asm.working.finalize()
-    # each section padded to a byte, the TOC from their sizes, and the
-    # file joined once: process 0 holds the sections and the file only
-    parts = []
-    for data, tail_val, tail_bits in sections:
-        parts.append(data)
-        if tail_bits:
-            parts.append(bytes([tail_val & ((1 << tail_bits) - 1)]))
-        asm.section_endpos.append(
-            (asm.section_endpos[-1] if asm.section_endpos else 0)
-            + len(data) + (1 if tail_bits else 0))
-    del sections
-    asm.write_toc_sizes(main)
-    parts.insert(0, main.finalize())
-    return b"".join(parts)
+    frame = FrameSections(geo.toc_size > 1)
+    frame.write(write_lf_global)
+    for lfid in range(n):
+        frame.add(all_lf.pop(lfid))
+    frame.write(write_hf_global_fixed_las, hf.cluster_map, num_presets,
+                freqs, geo.num_frame_groups, StreamingHFStream.FIXED_LAS)
+    for key in sorted(all_hf):
+        frame.add(all_hf.pop(key))
+    frame.write_toc(main)
+    # the file joined once: process 0 holds the sections and the file only
+    return b"".join([main.finalize(), *frame.chunks()])
 
 
 def main(argv=None) -> int:

@@ -48,7 +48,7 @@ def _one_frame_lfgs(w, h):
     enc = hydrium_tpu_torch.Encoder(ImageMetadata(width=w, height=h),
                                     device="cpu")
     try:
-        return list(enc._lfgs)
+        return list(enc._geo.lf_groups)
     finally:
         enc.close()
 

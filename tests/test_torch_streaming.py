@@ -9,7 +9,8 @@ import numpy as np
 
 from hydrium_tpu.utils import djxl
 from hydrium_tpu_torch import Encoder, ImageMetadata
-from hydrium_tpu_torch.jxl.frame import StreamingHFStream
+from hydrium_tpu_torch.jxl.frame import (HF_GROUPS_KEY, FrameSections,
+                                         StreamingHFStream)
 from test_streaming import make_image
 from test_torch_e2e import warm_state  # noqa: F401 (autouse fixture)
 
@@ -54,7 +55,7 @@ def test_streaming_sections_follow_arrival_order():
     """With several LF groups per preset and out-of-order arrival,
     presets flush out of arrival order; sections still come out in
     global LF group arrival order (the TOC permutation's assumption)."""
-    hf = StreamingHFStream(2, [2, 2])
+    hf = StreamingHFStream(2, [2, 2], FrameSections(True))
     tokens = np.zeros((4, 3, 64), np.uint16)
     clusters = np.zeros((4, 3, 64), np.uint8)
     residues = np.zeros((4, 3, 64), np.uint32)
@@ -66,9 +67,8 @@ def test_streaming_sections_follow_arrival_order():
         hf.add_group_padded(t, clusters, residues, rbits, valid, preset)
         hf.finish_lfg(preset)   # preset 1 flushes first
     hf.encode_group_sections()
-    keys = [k for k, _ in sorted(hf._sections, key=lambda kv: kv[0])]
-    assert [k[0] for k in keys] == [0, 1, 2, 3]
-    assert len(list(hf.iter_sections())) == 4
+    keys = [k for k, _ in hf.sections.items()]
+    assert keys == [HF_GROUPS_KEY + (arrival, 0) for arrival in range(4)]
 
 
 def test_spooled_streaming_bytes_equal_and_iter_output(tmp_path):
