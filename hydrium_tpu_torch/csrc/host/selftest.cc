@@ -6,8 +6,9 @@
 // multi-group grid at 1 and 3 threads, and the counts it refuses), ANS
 // table build and backwards emission (single- and multi-threaded), the
 // ANS encoder's reverse map against the alias-slot scan it replaced, the
-// LF residual decoder, and the PNG row defilter against the PNG
-// specification's filter definitions.
+// LF residual decoder, the PNG row defilter against the PNG
+// specification's filter definitions, and the transport code's table
+// build (complete codes of lengths 1..12 whose LUTs decode them).
 
 #include <cstdint>
 #include <cstdio>
@@ -51,6 +52,7 @@ uint64_t hyd_ans_recip(uint32_t);
 uint32_t hyd_ans_div(uint32_t, uint32_t);
 long hyd_lf_decode(const uint32_t*, const uint16_t*, long, long, uint32_t*);
 int hyd_png_unfilter(uint8_t*, const uint8_t*, long, int, int);
+int hyd_tok_build_tables(const int64_t*, int32_t*, uint32_t*, uint16_t*);
 }
 
 static uint64_t rng_state = 0x9E3779B97F4A7C15ull;
@@ -731,6 +733,84 @@ static void test_png_unfilter() {
   }
   printf("png unfilter ok\n");
 }
+// Transport code tables (hyd_tok_build_tables): every row is a complete
+// code (Kraft sum exactly 1) of lengths in [1, 12]; each of its 4096 LUT
+// entries names the symbol whose codeword its index starts with (LSB
+// first) and that symbol's length; a negative frequency, or INT64_MAX,
+// is refused.  Rows: uniform, all zero, one spike, halving weights (the
+// 12-bit cap), weights near 2^62, and random magnitudes.
+static void test_tok_tables() {
+  const int R = 10, A = 64, N = 4096;
+  std::vector<int64_t> f(R * A);
+  std::vector<int32_t> lens(R * A);
+  std::vector<uint32_t> codes(R * A);
+  std::vector<uint16_t> lut(R * N);
+  bool capped = false;
+  for (int iter = 0; iter < 40; iter++) {
+    for (int k = 0; k < R; k++)
+      for (int s = 0; s < A; s++) {
+        int64_t& v = f[k * A + s];
+        switch ((iter + k) % 6) {
+          case 0: v = 777; break;
+          case 1: v = 0; break;
+          case 2: v = s == 5 ? (int64_t)1 << 40 : 0; break;
+          case 3: v = s < 62 ? (int64_t)1 << (62 - s) : 1; break;
+          case 4: v = ((int64_t)1 << 62) - (int64_t)(rnd() % 1000); break;
+          default: v = (int64_t)(((uint64_t)rnd() << 16) >> (rnd() % 48));
+        }
+      }
+    if (hyd_tok_build_tables(f.data(), lens.data(), codes.data(),
+                             lut.data()) != 0) {
+      fprintf(stderr, "tok tables: build %d failed\n", iter);
+      exit(1);
+    }
+    for (int k = 0; k < R; k++) {
+      uint64_t kraft = 0;
+      for (int s = 0; s < A; s++) {
+        const int32_t len = lens[k * A + s];
+        if (len < 1 || len > 12 || codes[k * A + s] >> len) {
+          fprintf(stderr, "tok tables: row %d symbol %d length %d\n", k, s,
+                  len);
+          exit(1);
+        }
+        capped |= len == 12;
+        kraft += (uint64_t)1 << (12 - len);
+      }
+      if (kraft != (uint64_t)N) {
+        fprintf(stderr, "tok tables: row %d Kraft sum %llu/4096\n", k,
+                (unsigned long long)kraft);
+        exit(1);
+      }
+      for (int i = 0; i < N; i++) {
+        const uint16_t e = lut[k * N + i];
+        const int s = e & 0xff, len = e >> 8;
+        if (s >= A || len != lens[k * A + s] ||
+            (uint32_t)(i & ((1 << len) - 1)) != codes[k * A + s]) {
+          fprintf(stderr, "tok tables: row %d LUT entry %d = %u\n", k, i,
+                  (unsigned)e);
+          exit(1);
+        }
+      }
+    }
+  }
+  if (!capped) {
+    fprintf(stderr, "tok tables: no code reached 12 bits\n");
+    exit(1);
+  }
+  const int64_t bad[2] = {-1, INT64_MAX};
+  for (int64_t b : bad) {
+    std::fill(f.begin(), f.end(), 1);
+    f[3 * A + 17] = b;
+    if (hyd_tok_build_tables(f.data(), lens.data(), codes.data(),
+                             lut.data()) != -1) {
+      fprintf(stderr, "tok tables: frequency %lld not refused\n",
+              (long long)b);
+      exit(1);
+    }
+  }
+  printf("tok tables ok\n");
+}
+
 int main() {
   test_prefix_streams();
   test_hf_padded();
@@ -739,6 +819,7 @@ int main() {
   test_ans_div();
   test_lf_decode();
   test_png_unfilter();
+  test_tok_tables();
   printf("selftest passed\n");
   return 0;
 }

@@ -5,9 +5,10 @@
 //
 // Implements the host-side hot path of the encoder: the LSB-first bit
 // writer, hybrid-uint + LZ77 tokenization, depth-limited prefix coding,
-// and the backwards rANS emission with alias tables.  Behaviorally
-// equivalent to hydrium_tpu_torch/jxl/{bitwriter,entropy}.py (which are
-// the differential-tested Python oracles); serial per stream, parallel
+// the backwards rANS emission with alias tables, and the transport
+// code's tables.  Behaviorally equivalent to
+// hydrium_tpu_torch/jxl/{bitwriter,entropy,tokcode}.py (which are the
+// differential-tested Python oracles); serial per stream, parallel
 // across groups (threaded at the call layer).
 //
 // Exposed as a C ABI consumed via ctypes (no pybind11 in this image).
@@ -322,6 +323,82 @@ void build_prefix_table(const uint32_t* lengths, uint32_t A, VLC* table) {
   }
   if (code && code != (1ull << 32))
     throw std::runtime_error("VLC codes do not add up");
+}
+
+// ---------------------------------------------------------------------------
+// Transport code tables (jxl/tokcode.py build_tables' twin): per row,
+// package-merge lengths of the add-one-smoothed histogram, the canonical
+// codewords of build_prefix_table and a 4096-entry decode LUT.
+
+constexpr int kTokRows = 10;
+constexpr int kTokAlphabet = 64;
+constexpr int kTokMaxLen = 12;
+
+// An item of package-merge: its weight and the span of its symbols in
+// the arena (a single symbol, or the concatenation of a package's two
+// items).  Weights are exact: a package sums at most max_len * A
+// smoothed int64 frequencies.
+struct PmItem {
+  unsigned __int128 w;
+  uint32_t off, len;
+};
+
+// package_merge_lengths' twin.  Items order as Python's sorted orders
+// (weight, symbol tuple): by weight, then by the symbol sequence, a
+// prefix before its extensions.  Equal weights can give other, equally
+// optimal lengths, so this order is part of the result.  Items that
+// compare equal are equal, so no step needs to be stable.  The singles
+// are sorted once; each level's packages come out in weight order, so
+// an insertion sort puts them in full order in about one pass, and a
+// merge with the singles gives the level's sorted list.
+void package_merge_lengths(const unsigned __int128* w, int A, int max_len,
+                           uint32_t* lengths) {
+  std::vector<uint8_t> arena(A);
+  std::vector<PmItem> singles(A), packages, merged;
+  for (int i = 0; i < A; i++) {
+    arena[i] = (uint8_t)i;
+    singles[i] = {w[i], (uint32_t)i, 1};
+  }
+  auto less = [&arena](const PmItem& a, const PmItem& b) {
+    if (a.w != b.w) return a.w < b.w;
+    const uint8_t* s = arena.data();
+    return std::lexicographical_compare(s + a.off, s + a.off + a.len,
+                                        s + b.off, s + b.off + b.len);
+  };
+  std::sort(singles.begin(), singles.end(), less);
+  auto merge_all = [&]() {
+    for (size_t i = 1; i < packages.size(); i++) {
+      const PmItem p = packages[i];
+      size_t j = i;
+      for (; j > 0 && less(p, packages[j - 1]); j--)
+        packages[j] = packages[j - 1];
+      packages[j] = p;
+    }
+    merged.resize(singles.size() + packages.size());
+    std::merge(singles.begin(), singles.end(), packages.begin(),
+               packages.end(), merged.begin(), less);
+  };
+  for (int level = 0; level < max_len - 1; level++) {
+    merge_all();
+    packages.clear();
+    for (size_t k = 0; k + 1 < merged.size(); k += 2) {
+      const PmItem& a = merged[k];
+      const PmItem& b = merged[k + 1];
+      const uint32_t off = (uint32_t)arena.size();
+      arena.resize(off + a.len + b.len);
+      uint8_t* s = arena.data();
+      std::copy(s + a.off, s + a.off + a.len, s + off);
+      std::copy(s + b.off, s + b.off + b.len, s + off + a.len);
+      packages.push_back({a.w + b.w, off, a.len + b.len});
+    }
+  }
+  // the optimal code takes the 2A-2 cheapest items of the last list; a
+  // symbol's length is its count there
+  merge_all();
+  std::fill(lengths, lengths + A, 0);
+  for (size_t k = 0; k < (size_t)(2 * (A - 1)) && k < merged.size(); k++)
+    for (uint32_t j = 0; j < merged[k].len; j++)
+      lengths[arena[merged[k].off + j]]++;
 }
 
 // code-length-code tables (JXL spec; entropy.py twins)
@@ -1365,6 +1442,44 @@ int hyd_ans_reverse_map(const uint32_t* f, long A, int las, uint16_t* rev) {
 uint64_t hyd_ans_recip(uint32_t freq) { return ans_recip(freq); }
 uint32_t hyd_ans_div(uint32_t state, uint32_t freq) {
   return ans_div(state, ans_recip(freq));
+}
+
+// The transport code's tables (jxl/tokcode.py build_tables' twin):
+// freqs[10*64] -> lens[10*64], LSB-first codes[10*64] and decode LUTs
+// lut[10*4096] with entry = symbol | length << 8, index class*64 + token.
+// Pure, so any number of threads may build at once.  0, or -1 for a
+// frequency below 0 or at INT64_MAX (whose smoothed value int64 cannot
+// hold) or a length outside [1, 12].
+int hyd_tok_build_tables(const int64_t* freqs, int32_t* lens,
+                         uint32_t* codes, uint16_t* lut) {
+  try {
+    for (int k = 0; k < kTokRows; k++) {
+      const int64_t* f = freqs + k * kTokAlphabet;
+      unsigned __int128 w[kTokAlphabet];
+      for (int s = 0; s < kTokAlphabet; s++) {
+        if (f[s] < 0 || f[s] == INT64_MAX) return -1;
+        w[s] = (unsigned __int128)f[s] + 1;
+      }
+      uint32_t ln[kTokAlphabet];
+      package_merge_lengths(w, kTokAlphabet, kTokMaxLen, ln);
+      for (int s = 0; s < kTokAlphabet; s++)
+        if (ln[s] < 1 || ln[s] > (uint32_t)kTokMaxLen) return -1;
+      VLC table[kTokAlphabet];
+      build_prefix_table(ln, kTokAlphabet, table);
+      uint16_t* row = lut + k * (1 << kTokMaxLen);
+      std::fill(row, row + (1 << kTokMaxLen), 0);
+      for (int s = 0; s < kTokAlphabet; s++) {
+        const uint32_t len = table[s].length, cw = table[s].code;
+        lens[k * kTokAlphabet + s] = (int32_t)len;
+        codes[k * kTokAlphabet + s] = cw;
+        for (uint32_t i = cw; i < (1u << kTokMaxLen); i += 1u << len)
+          row[i] = (uint16_t)(s | len << 8);
+      }
+    }
+    return 0;
+  } catch (const std::exception&) {
+    return -1;
+  }
 }
 
 // PNG row defilter (spec 9.2): reconstruct one scanline in place.

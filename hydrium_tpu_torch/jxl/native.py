@@ -141,6 +141,8 @@ def _load():
         lib.hyd_lf_decode.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_long, ctypes.c_long,
                                       ctypes.c_void_p]
+        lib.hyd_tok_build_tables.restype = ctypes.c_int
+        lib.hyd_tok_build_tables.argtypes = [ctypes.c_void_p] * 4
         lib.hyd_png_unfilter.restype = ctypes.c_int
         lib.hyd_png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                          ctypes.c_long, ctypes.c_int,
@@ -166,6 +168,21 @@ def png_unfilter(cur: np.ndarray, prev: Optional[np.ndarray], bpp: int,
         cur.size, bpp, filt)
     if ret != 0:
         raise ValueError(f"bad PNG filter {filt}")
+
+
+def tok_build_tables(freqs: np.ndarray):
+    """The transport code's tables from freqs [10, 64] (jxl/tokcode.py
+    build_tables' twin, element for element): (lengths i32[640],
+    codewords u32[640], decode LUTs u16[10, 4096]).  The build runs
+    without the GIL.  Raises RuntimeError for a negative frequency."""
+    f = np.ascontiguousarray(freqs, np.int64).reshape(10, 64)
+    lens = np.empty(640, np.int32)
+    codes = np.empty(640, np.uint32)
+    lut = np.empty((10, 4096), np.uint16)
+    if _load().hyd_tok_build_tables(f.ctypes.data, lens.ctypes.data,
+                                    codes.ctypes.data, lut.ctypes.data):
+        raise RuntimeError("native transport code build failed")
+    return lens, codes, lut
 
 
 def lf_decode(words: np.ndarray, lf_lut: np.ndarray, lf_n: int,

@@ -25,8 +25,11 @@ Table row 9 (LF_CLASS) codes the LF-residual hybrid tokens: format v4
 ships LF residuals hybrid-uint-coded under their own transport class;
 the HF walker never sees that row (its LUT slice stays [:tok_classes]).
 
-Reuses the depth-limited Huffman + canonical bit-reversed code
-construction of jxl/entropy.py (entropy.c:592-707)."""
+Reuses the canonical bit-reversed code construction of jxl/entropy.py
+(entropy.c:664-707).  The tables are built by the native plane
+(csrc/host/serializer.cc hyd_tok_build_tables, without the GIL);
+build_tables here is its twin, and the builder where the native plane
+is missing."""
 
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from typing import Tuple
 
 import numpy as np
 
+from . import native
 from .entropy import build_prefix_table
 
 ALPHABET = 64
@@ -182,7 +186,8 @@ class TokenCodec:
 
     def tables(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(lengths, codewords, decode LUTs) of the current code, built
-        on the first call after an update."""
+        on the first call after an update (natively where the native
+        plane is there, equal to build_tables element for element)."""
         # fast path without the lock: _tables is only ever swapped
         # atomically (None or a complete tuple), so a stale read costs
         # at most one adaptation step, never a torn table
@@ -190,6 +195,7 @@ class TokenCodec:
         if t is None:
             with self._lock:
                 freqs = self.freqs
-            t = build_tables(freqs)
+            t = (native.tok_build_tables if native.available()
+                 else build_tables)(freqs)
             self._tables = t
         return t

@@ -118,7 +118,7 @@ def test_one_frame_spans_and_counters_of_each_lf_group(cold, monkeypatch,
     codec_table_builds every build of the tables."""
     from hydrium_tpu_torch import EncodeStats
     from hydrium_tpu_torch import encoder as TE
-    from hydrium_tpu_torch.jxl import tokcode
+    from hydrium_tpu_torch.jxl import native, tokcode
 
     if cold:
         TE.reset_warm_state(tmp_path / "cold" / "warm.npz")
@@ -127,18 +127,25 @@ def test_one_frame_spans_and_counters_of_each_lf_group(cold, monkeypatch,
         # clears them
         TE._SHARED_CODEC.tables()
     calls = {"dispatch": 0, "build": 0}
-    real_dispatch, real_build = TE._TorchDispatch._dispatch, tokcode.build_tables
+    real_dispatch = TE._TorchDispatch._dispatch
 
     def dispatch(self):
         calls["dispatch"] += 1
         return real_dispatch(self)
 
-    def build(freqs):
-        calls["build"] += 1
-        return real_build(freqs)
+    def counted(real_build):
+        def build(freqs):
+            calls["build"] += 1
+            return real_build(freqs)
+        return build
 
     monkeypatch.setattr(TE._TorchDispatch, "_dispatch", dispatch)
-    monkeypatch.setattr(tokcode, "build_tables", build)
+    # tables() builds with the native plane, or with its Python twin
+    # where the native plane is missing: count both
+    monkeypatch.setattr(tokcode, "build_tables",
+                        counted(tokcode.build_tables))
+    monkeypatch.setattr(native, "tok_build_tables",
+                        counted(native.tok_build_tables))
     stats = EncodeStats()
     stats.enable_timeline()
     img = make_image(*ONE_FRAME, "noise", seed=21)
