@@ -1,10 +1,12 @@
 // Standalone self-test of the port's native serialization plane
-// (serializer.cc beside it), built with it under ASAN/UBSAN by
+// (serializer.cc beside it), built with it under ASAN/UBSAN and
+// -DHYD_SELFTEST (which builds in serializer.cc's thread counter) by
 // tests/test_torch_native_sanitized.py.  Exercises every hot path with
 // randomized streams: LZ77 tokenization, prefix encode (simple + complex
 // codes, nested cluster maps), the packed-stream context walker (a
 // multi-group grid at 1 and 3 threads, and the counts it refuses), ANS
-// table build and backwards emission (single- and multi-threaded), the
+// table build and backwards emission (single- and multi-threaded, and
+// the threads a call starts for its groups), the
 // ANS encoder's reverse map against the alias-slot scan it replaced, the
 // LF residual decoder, the PNG row defilter against the PNG
 // specification's filter definitions, and the transport code's table
@@ -45,6 +47,7 @@ int hyd_hf_encode_all(HydHF*, int, HydWriter**, int);
 int hyd_hf_write_header(HydHF*, const uint8_t*, long, HydWriter*);
 void hyd_hf_force_las(HydHF*, int);
 long hyd_hf_num_groups(HydHF*);
+long hyd_threads_started();
 int hyd_hf_las(HydHF*);
 long hyd_hf_frequencies(HydHF*, long, uint32_t*, long);
 int hyd_ans_reverse_map(const uint32_t*, long, int, uint16_t*);
@@ -249,6 +252,68 @@ static std::vector<uint8_t> hf_result(HydHF* h, long n_clusters,
     hyd_writer_free(w);
   }
   return out;
+}
+
+// hyd_hf_encode_all starts min(n_threads, groups) - 1 threads: none for
+// a one-group frame (a 256x256 tile) whatever n_threads, and the
+// sections are the same at every thread count.
+static void test_encode_all_threads() {
+  auto cm = hf_map();
+  const int blocks = 256;
+  std::vector<uint16_t> tokens(blocks * 3 * 64);
+  std::vector<uint8_t> clusters(blocks * 3 * 64);
+  std::vector<uint32_t> residues(blocks * 3 * 64, 0);
+  std::vector<uint8_t> rbits(blocks * 3 * 64, 0);
+  std::vector<int32_t> valid(blocks * 3);
+  for (int b = 0; b < blocks * 3; b++) {
+    valid[b] = rnd() % 65;
+    for (int k = 0; k < 64; k++) {
+      tokens[b * 64 + k] = rnd() % 16;
+      clusters[b * 64 + k] = cm[rnd() % 1485];
+    }
+  }
+  for (long groups : {1l, 3l, 6l}) {
+    std::vector<uint8_t> want;
+    for (int n_threads : {1, 4, 16}) {
+      HydHF* h = hyd_hf_new(9);
+      for (long g = 0; g < groups; g++)
+        hyd_hf_add_group(h, tokens.data(), clusters.data(), residues.data(),
+                         rbits.data(), valid.data(), blocks, 0);
+      if (hyd_hf_prepare(h) != 0) {
+        fprintf(stderr, "encode_all threads: prepare failed\n");
+        exit(1);
+      }
+      std::vector<HydWriter*> ws(groups);
+      for (auto& w : ws) w = hyd_writer_new();
+      long before = hyd_threads_started();
+      if (hyd_hf_encode_all(h, 0, ws.data(), n_threads) != 0) {
+        fprintf(stderr, "encode_all threads: encode failed\n");
+        exit(1);
+      }
+      long started = hyd_threads_started() - before;
+      long expect = std::min((long)n_threads, groups) - 1;
+      if (started != expect) {
+        fprintf(stderr, "encode_all: %ld groups at %d threads started %ld "
+                "threads, not %ld\n", groups, n_threads, started, expect);
+        exit(1);
+      }
+      std::vector<uint8_t> got;
+      for (auto* w : ws) {
+        auto b = section_bytes(w);
+        got.insert(got.end(), b.begin(), b.end());
+        hyd_writer_free(w);
+      }
+      if (n_threads == 1)
+        want = got;
+      else if (got != want) {
+        fprintf(stderr, "encode_all: %ld groups at %d threads differ from "
+                "1\n", groups, n_threads);
+        exit(1);
+      }
+      hyd_hf_free(h);
+    }
+  }
+  printf("encode_all threads ok\n");
 }
 
 // The packed walker over a 2x3 buffer grid: 2x2 groups with a nonzero
@@ -815,6 +880,7 @@ int main() {
   test_prefix_streams();
   test_hf_padded();
   test_hf_packed();
+  test_encode_all_threads();
   test_ans_reverse_map();
   test_ans_div();
   test_lf_decode();

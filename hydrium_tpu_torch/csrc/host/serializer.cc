@@ -886,6 +886,26 @@ void ans_encode_slice(const Sym* syms, size_t count, const AnsEncSym* enc,
   }
 }
 
+#ifdef HYD_SELFTEST
+// The threads fan_out has started since the program began, built only
+// into the self-test, which checks that a call starts
+// min(n_threads, its groups) - 1 of them.
+std::atomic<long> g_threads_started{0};
+#endif
+
+// worker(0) .. worker(n_threads - 1): the first on the calling thread,
+// each other on a thread of its own, all joined before returning.
+template <typename F>
+void fan_out(int n_threads, F& worker) {
+  std::vector<std::thread> threads;
+  for (int t = 1; t < n_threads; t++) threads.emplace_back(worker, t);
+#ifdef HYD_SELFTEST
+  g_threads_started.fetch_add(n_threads - 1, std::memory_order_relaxed);
+#endif
+  worker(0);
+  for (auto& th : threads) th.join();
+}
+
 }  // namespace
 
 // ===========================================================================
@@ -1242,10 +1262,7 @@ int hyd_hf_add_lfg_packed(HydHF* h, const uint32_t* token_words,
       if (wrote != (size_t)sym_counts[g]) errs[t] = 1;
     }
   };
-  std::vector<std::thread> threads;
-  for (int t = 1; t < n_threads; t++) threads.emplace_back(worker, t);
-  worker(0);
-  for (auto& th : threads) th.join();
+  fan_out(n_threads, worker);
   for (int t = 0; t < n_threads; t++) {
     if (errs[t]) {
       // roll the symbol array back, before any alphabet size is merged,
@@ -1392,16 +1409,18 @@ int hyd_hf_write_header(HydHF* h, const uint8_t* cmap, long num_dists,
   }
 }
 
-// Encode every group section in parallel into caller-provided writers.
+// Encode every group section in parallel into caller-provided writers,
+// on at most n_threads threads and no more than there are groups: a
+// one-group frame (a 256x256 tile) encodes on the calling thread alone.
 int hyd_hf_encode_all(HydHF* h, int preset_bits, HydWriter** writers,
                       int n_threads) {
   size_t n = h->barriers.size();
   std::vector<size_t> offsets(n + 1, 0);
   for (size_t i = 0; i < n; i++) offsets[i + 1] = offsets[i] + h->barriers[i];
   std::atomic<int> failed{0};
-  if (n_threads < 1) n_threads = 1;
-  auto worker = [&](size_t t0) {
-    for (size_t g = t0; g < n; g += n_threads) {
+  n_threads = (int)std::max(1l, std::min((long)n_threads, (long)n));
+  auto worker = [&](int t0) {
+    for (size_t g = (size_t)t0; g < n; g += n_threads) {
       try {
         writers[g]->bw.write(h->presets[g], preset_bits);
         ans_encode_slice(h->syms.data() + offsets[g], h->barriers[g],
@@ -1412,12 +1431,15 @@ int hyd_hf_encode_all(HydHF* h, int preset_bits, HydWriter** writers,
       }
     }
   };
-  std::vector<std::thread> threads;
-  for (int t = 1; t < n_threads; t++) threads.emplace_back(worker, t);
-  worker(0);
-  for (auto& th : threads) th.join();
+  fan_out(n_threads, worker);
   return failed.load() ? -1 : 0;
 }
+
+#ifdef HYD_SELFTEST
+long hyd_threads_started() {
+  return g_threads_started.load(std::memory_order_relaxed);
+}
+#endif
 
 // The reverse map of one normalized histogram f[0..A) summing to 4096,
 // as hyd_hf_prepare builds it (all mass on the last symbol selects the

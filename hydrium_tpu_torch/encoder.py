@@ -767,9 +767,10 @@ class Encoder:
         TOC) from an already-fed HF stream; returns the frame bytes.
         Pure function of its arguments -- safe to run on a worker
         thread (the per-frame ANS encode releases the GIL in C++).  Its
-        spans carry the tile's (y, x)."""
+        spans carry the tile's (y, x); counts one tile_frames."""
         m = self.metadata
         tag = (lfg.y, lfg.x)
+        self.stats.count("tile_frames")
         geo = FrameGeometry(
             image_width=m.width, image_height=m.height, one_frame=False,
             lfg_count_x=1, lf_groups=[lfg], lfg_arrival=[0])
@@ -991,14 +992,16 @@ class Encoder:
         """Submit a fetched chunk unit's per-tile walk + ANS + frame
         serialization to the 4-worker pool (called on the unit's fetch
         thread as soon as its payload parses; the walker and ANS encoder
-        release the GIL in C++).  Results are collected strictly in send
-        order by _tb_drain_unit."""
+        release the GIL in C++).  Stage render_queue times each tile's
+        wait for a worker, from its submit to the start of its render.
+        Results are collected strictly in send order by _tb_drain_unit."""
         m = self.metadata
         tw, th = m.tile_width, m.tile_height
         gpt = (th >> 8) * (tw >> 8)
         parsed, lut = unit["result"]
 
-        def render(j, lfg, last, include_header):
+        def render(queued, j, lfg, last, include_header):
+            queued.close()
             g0, g1 = j * gpt, (j + 1) * gpt
             lf0 = j * (th >> 3)
             hf = HFStream(1)
@@ -1023,7 +1026,8 @@ class Encoder:
         futs = []
         for j, (tx, ty, lfg) in enumerate(unit["metas"]):
             last = self._tile_is_last(tx, ty, tw, th, -1)
-            futs.append((pool.submit(render, j, lfg, last,
+            queued = self.stats.queued("render_queue", (ty, tx))
+            futs.append((pool.submit(render, queued, j, lfg, last,
                                      unit["include_header"] and j == 0),
                          last, (ty, tx)))
         unit["futs"] = futs

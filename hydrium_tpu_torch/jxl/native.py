@@ -419,6 +419,10 @@ class NativeHF:
 
     def encode_all(self, preset_bits: int,
                    n_threads: int = 0) -> List[NativeBitWriter]:
+        """Every group's section, on up to n_threads threads (0: the
+        host's cores, at most 16); the C++ side starts no more threads
+        than there are groups, so a one-group frame encodes on the
+        calling thread."""
         n = self._lib.hyd_hf_num_groups(self._h)
         writers = [NativeBitWriter() for _ in range(n)]
         arr = (ctypes.c_void_p * n)(*[w._h for w in writers])

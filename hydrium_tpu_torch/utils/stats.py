@@ -13,7 +13,11 @@ each span is also an event (name[y,x], t0, t1, thread) on
 time.perf_counter(), and while a torch.profiler records, a
 torch.profiler.record_function of that name as well: the program's
 spans then sit in the profiler's own trace, on the clock of the device's
-kernels."""
+kernels.
+
+A job's wait in a queue (`queued`) opens on the thread that queues it
+and closes on the thread that runs it: its event and its mirror sit on
+the queueing thread's row."""
 
 from __future__ import annotations
 
@@ -31,6 +35,10 @@ from torch.profiler import record_function
 _OFF = contextlib.nullcontext()
 
 
+def _label(name: str, tag) -> str:
+    return name if tag is None else f"{name}[{tag[0]},{tag[1]}]"
+
+
 class _Span:
     """The context of one stage or event (see EncodeStats.stage)."""
 
@@ -42,9 +50,7 @@ class _Span:
     def __enter__(self):
         self.label = self.mirror = None
         if self.stats.events is not None:
-            tag = self.tag
-            self.label = (self.name if tag is None
-                          else f"{self.name}[{tag[0]},{tag[1]}]")
+            self.label = _label(self.name, self.tag)
             if _autograd_profiler._is_profiler_enabled:
                 self.mirror = record_function(self.label)
                 self.mirror.__enter__()
@@ -62,6 +68,41 @@ class _Span:
             if self.label is not None and st.events is not None:
                 st.events.append((self.label, self.t0, t1,
                                   threading.current_thread().name))
+
+
+class _Queued:
+    """A job's wait in a queue (see EncodeStats.queued): opened where the
+    job is queued, closed by close() on the thread that runs it."""
+
+    __slots__ = ("stats", "name", "label", "thread", "done", "t0")
+
+    def __init__(self, stats: "EncodeStats", name: str, tag):
+        self.stats, self.name = stats, name
+        self.label = self.thread = self.done = None
+        if stats.events is not None:
+            self.label = _label(name, tag)
+            self.thread = threading.current_thread().name
+            if _autograd_profiler._is_profiler_enabled:
+                # the profiler's own span for work that ends elsewhere:
+                # it opens here and ends when `done` completes
+                import torch
+
+                self.done = torch.futures.Future()
+                rec = torch.ops.profiler._record_function_enter_new(
+                    self.label, None)
+                torch.ops.profiler._call_end_callbacks_on_jit_fut.\
+                    _RecordFunction(rec, self.done)
+        self.t0 = time.perf_counter()
+
+    def close(self) -> None:
+        t1 = time.perf_counter()
+        if self.done is not None:
+            self.done.set_result(None)
+        st = self.stats
+        with st._lock:
+            st.stage_seconds[self.name] += t1 - self.t0
+            if self.label is not None and st.events is not None:
+                st.events.append((self.label, self.t0, t1, self.thread))
 
 
 @dataclass
@@ -108,6 +149,13 @@ class EncodeStats:
         if self.events is None:
             return _OFF
         return _Span(self, name, tag, False)
+
+    def queued(self, name: str, tag=None) -> _Queued:
+        """Time a job's wait in a queue into stage_seconds[name]: from
+        here, where it is queued, to close(), called first thing on the
+        thread that runs it.  Tagged, logged and mirrored as stage()
+        does, on this thread's row."""
+        return _Queued(self, name, tag)
 
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:

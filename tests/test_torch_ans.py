@@ -130,6 +130,15 @@ def test_native_sections_equal_python_twin(las, shape, seed):
     assert _native(groups, las, 3) == want    # fewer threads than groups
 
 
+@pytest.mark.parametrize("n_threads", [1, 8, 16])
+def test_one_group_frame_sections_equal_at_any_thread_count(n_threads):
+    """A one-group frame, as a 256x256 tile frame is, gives its twin's
+    section whatever thread count it is asked for (it runs on the
+    calling thread alone)."""
+    groups = _stream(8, "random", 23)[:1]
+    assert _native(groups, 8, n_threads) == _python(groups, 8)
+
+
 @pytest.mark.parametrize("mode", ["streaming", "whole_frame", "tiled"])
 def test_encodes_count_the_symbols_they_ans_encode(mode):
     """ans_symbols equals walk_symbols: on the drain worker, preset by

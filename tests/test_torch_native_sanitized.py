@@ -19,7 +19,8 @@ from hydrium_tpu_torch.jxl import native
 HOST = os.path.dirname(native._SRC_PATH)
 SOURCES = [native._SRC_PATH, os.path.join(HOST, "selftest.cc")]
 BINARY = os.path.join(native._BUILD_DIR, "selftest_asan")
-FLAGS = ["-O1", "-g", "-std=c++17", "-pthread",
+# HYD_SELFTEST builds in the self-test's thread counter
+FLAGS = ["-O1", "-g", "-std=c++17", "-pthread", "-DHYD_SELFTEST",
          "-fsanitize=address,undefined", "-fno-sanitize-recover=all"]
 
 

@@ -196,8 +196,10 @@ def test_one_frame_spans_and_counters_of_each_lf_group(cold, monkeypatch,
                          ids=["full_tiles", "edge_tiles"])
 def test_tiled_encode_renders_each_tile_once(h, w):
     """One render per tile, tagged with its (y, x): on hyd-tile, with
-    its walk inside it, for a stacked chunk's tiles; on the caller for
-    an edge tile, whose walk runs in its drain."""
+    its walk inside it and one render_queue from the unit's fetch thread
+    ending where it starts, for a stacked chunk's tiles; on the caller
+    for an edge tile, whose walk runs in its drain.  tile_frames counts
+    every tile."""
     from hydrium_tpu_torch import EncodeStats
 
     stats = EncodeStats()
@@ -216,12 +218,16 @@ def test_tiled_encode_renders_each_tile_once(h, w):
         (_n, t0, t1, thread), = renders[tag]
         walks = [e for e in by_tag[tag] if e[0] == "walk"]
         assert len(walks) == 1
+        queues = [e for e in by_tag[tag] if e[0] == "render_queue"]
         if tag in full:
             assert thread.startswith("hyd-tile")
             assert walks[0][3] == thread and t0 <= walks[0][1] <= t1
+            (_n, q0, q1, queuer), = queues
+            assert queuer.startswith("hyd-fetch") and q0 <= q1 <= t0
         else:
-            assert thread == caller
+            assert thread == caller and queues == []
     assert sum(len(r) for r in renders.values()) == len(tiles)
+    assert stats.counters["tile_frames"] == len(tiles)
 
 
 @pytest.mark.parametrize("shift", [-1, 0], ids=["one_frame", "tiled"])
@@ -276,6 +282,28 @@ def test_spans_are_mirrored_in_the_profilers_trace(shift, shape, worker,
     assert threading.current_thread().name in threads
     assert any(t.startswith("hyd-prep") for t in threads)
     assert any(t.startswith(worker) for t in threads)
+
+
+def test_render_queue_is_mirrored_under_a_profiler(tmp_path):
+    """A tile's render_queue opens on the fetch thread and ends on a
+    hyd-tile worker: under device_trace with the timeline on, each is a
+    user annotation of its own name[y,x] in the profiler's trace."""
+    from hydrium_tpu_torch import EncodeStats
+
+    stats = EncodeStats()
+    stats.enable_timeline()
+    img = make_image(512, 768, "noise", seed=25)
+    with device_trace(str(tmp_path)) as path:
+        hydrium_tpu_torch.encode_image(img, 0, device="cpu", stats=stats)
+    with open(path) as f:
+        trace = json.load(f)["traceEvents"]
+    want = sorted(f"render_queue[{ty},{tx}]" for ty in range(2)
+                  for tx in range(3))
+    assert sorted(e[0] for e in stats.events
+                  if e[0].startswith("render_queue")) == want
+    assert sorted(e["name"] for e in trace if e.get("ph") == "X"
+                  and e.get("cat") == "user_annotation"
+                  and e["name"].startswith("render_queue")) == want
 
 
 @pytest.mark.parametrize("timeline,profiling", [(True, False),
